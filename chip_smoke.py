@@ -6,19 +6,35 @@
 Phases; any failure raises and the script exits non-zero without printing
 its result lines:
 
-  1. build  — compile every CUDA kernel of the main path from the sources in
-     this checkout (nvcc, sm_90a) and print the build time and ptxas report;
+  1. build  — compile every CUDA kernel from the sources in this checkout
+     (one nvcc per source, in parallel, sm_90a) and print the build time and
+     ptxas report;
   2. kernels — hold each kernel against its plain PyTorch version on the
      card on seeded inputs (integer outputs exact, floats within the stated
-     tolerance), and time both with CUDA events;
+     tolerance): the tuple kernel and the counts kernel at L = 1, 7, 511,
+     513 and 200,000 and in the k ~ lambda band, the counts kernel also on
+     reference-N rows;
   3. main path — write a synthetic messy workload (one 200 kb chromosome,
      1.5M 100 bp reads: 750x, an enrichment-panel depth) and run the
      port's CLI entry point on the card with -gVCF true: the launch counts
-     are set to 0 just before and read just after, and every kernel of the
-     path must have launched. The same run with -backend numpy (all-host
-     f64) must give the same VCF body, the reference-line strand bias
-     within 1e-3 dB (5% below -40 dB);
-  4. report — the kernels line (JSON), end-to-end rates, peak device
+     are set to 0 just before and read just after, and the tuple kernel
+     must have launched. The same run with -backend numpy (all-host f64)
+     must give the same VCF body, the reference-line strand bias within
+     1e-3 dB (5% below -40 dB). The run's read events, reference sequence
+     and single-device reference-locus outputs are recorded;
+  4. mesh — the recorded events through the mesh-sharded scoring path
+     (parallel/sharding.sharded_score_reference_positions, the function
+     -MeshDevices calls) on meshes of 1 and 4 shards on the one card, at
+     the main path's full width: the counts are set to 0 just before each
+     mesh's run and read just after, the counts kernel must launch once per
+     shard, and the per-position outputs must equal the single-device ones
+     (integers exact, strand bias within the phase-2 tolerance). The counts
+     kernel is then held against its plain version on the tile each mesh
+     handed it, with the phase-2 tolerance;
+  5. entry points — entry() on the card against the plain version, and
+     dryrun_multichip over every card;
+  6. report — the kernels line (JSON), the kernels' and the plain versions'
+     times, end-to-end rates, the mesh phase's wall and stages, peak device
      memory, the card's name and power limit, and the contract line
      {"ok": true, "device": {...}} last.
 
@@ -81,32 +97,35 @@ def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
 
 
 # ---------------------------------------------------------------------------
-# The tuple kernel: comparison with its plain version, and its bound
+# The kernels: comparison with their plain versions, and their bounds
 # ---------------------------------------------------------------------------
 
 INT_KEYS = ("total_coverage", "support", "variant_qscore", "genotype", "gq",
             "filter_bits", "num_no_calls")
+DIR_KEYS = ("coverage_by_dir", "support_by_dir")
 
 
-def compare_tuples(out, ref) -> float:
-    """Integers exact; frequency and sb_gatk (clipped to the [-100, 0] dB
-    the gVCF writer emits) within 1e-3 above -40 dB, 5% below. Returns the
-    largest absolute float difference."""
+def compare_scores(name, out, ref) -> float:
+    """Integers (and the by-direction tuples) exact; frequency within 1e-6;
+    sb_gatk (clipped to the [-100, 0] dB the gVCF writer emits) within
+    1e-3 above -40 dB, 5% below. Returns the largest absolute float
+    difference."""
     import torch
-    for k in INT_KEYS:
+    for k in INT_KEYS + DIR_KEYS:
         if not torch.equal(out[k], ref[k]):
             bad = int((out[k] != ref[k]).sum())
-            raise AssertionError(f"score_tuples: {k} differs at {bad} loci")
-    err = float((out["frequency"] - ref["frequency"]).abs().max())
+            raise AssertionError(f"{name}: {k} differs at {bad} loci")
+    err = float((out["frequency"] - ref["frequency"]).abs().max()) \
+        if out["frequency"].numel() else 0.0
     if err > 1e-6:
-        raise AssertionError(f"score_tuples: frequency differs by {err}")
+        raise AssertionError(f"{name}: frequency differs by {err}")
     got = out["sb_gatk"].clamp(-100.0, 0.0)
     want = ref["sb_gatk"].clamp(-100.0, 0.0)
     diff = (got - want).abs()
     tol = torch.where(want > -40.0, torch.full_like(want, 1e-3),
                       0.05 * want.abs())
     if bool((diff > tol).any()):
-        raise AssertionError(f"score_tuples: sb_gatk differs by "
+        raise AssertionError(f"{name}: sb_gatk differs by "
                              f"{float(diff.max())} dB")
     return max(err, float(diff.max()) if diff.numel() else 0.0)
 
@@ -170,6 +189,33 @@ def tuple_kernel_ops(tuples, out, params) -> float:
     return float(ops.sum())
 
 
+# the counts kernel's prologue per locus: 15 conversions and 12 adds for
+# coverage, 2 compares and 3 conversions for support, 2 adds for the N
+# count, 2 conversions back for the stitched counts
+LOCI_PROLOGUE_OPS = 36
+# bytes per locus: counts (72) and reference code (4) read once; seven int32
+# and two f32 outputs (36) and six by-direction int32 (24) written once
+LOCI_BYTES = 72 + 4 + 36 + 24
+
+
+def loci_kernel_ops(out, params) -> float:
+    """f32 operations the counts kernel does on these loci: its prologue
+    plus the tuple math on the tuples the prologue derives."""
+    import torch
+    tuples = torch.cat([out["support_by_dir"], out["coverage_by_dir"]], 1)
+    n = tuples.shape[0]
+    return tuple_kernel_ops(tuples, out, params) + LOCI_PROLOGUE_OPS * n
+
+
+def bound(ops: float, nbytes: float):
+    """(bound ms, what bounds it) on one H100 at its published peaks."""
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
 def random_tuples(n: int, seed: int = SEED):
     """int32 [n, 6] (support, coverage)-by-direction tuples, support within
     coverage."""
@@ -181,8 +227,9 @@ def random_tuples(n: int, seed: int = SEED):
 
 
 def check_tuple_kernel(device):
-    """Phase 2: the kernel against its plain version at the edge sizes and
-    in the k ~ lambda band. Returns the largest float difference."""
+    """Phase 2: the tuple kernel against its plain version at the edge
+    sizes and in the k ~ lambda band. Returns the largest float
+    difference."""
     import numpy as np
     import torch
     from pisces_tpu_torch.ops import scoring_kernels as K
@@ -203,9 +250,49 @@ def check_tuple_kernel(device):
         torch.cuda.synchronize()
         ref = K.score_reference_tuples_plain(t, ScoringParams(),
                                              num_no_calls=nc)
-        worst = max(worst, compare_tuples(out, ref))
+        worst = max(worst, compare_scores("score_tuples", out, ref))
         log(f"score_tuples {name}: matches its plain version (integers "
             "exact, sb_gatk within 1e-3 dB above -40 dB and 5% below)")
+    return worst
+
+
+def random_loci(n: int, seed: int = SEED, codes: int = 4):
+    """(int32 [n, 6, 3] counts, int32 [n] reference codes in 0..codes-1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 60, size=(n, 6, 3)).astype(np.int32)
+    counts[: n // 50] = 0                      # uncovered loci
+    return counts, rng.integers(0, codes, n).astype(np.int32)
+
+
+def check_loci_kernel(device):
+    """Phase 2: the counts kernel against its plain version at the edge
+    sizes, in the k ~ lambda band and on reference-N rows. Returns the
+    largest float difference."""
+    import numpy as np
+    import torch
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.ops.scoring_params import ScoringParams
+    rng = np.random.default_rng(SEED + 1)
+    cases = [(f"L={L}", *random_loci(L, SEED + L)) for L in SIZES]
+    band = np.zeros((1024, 6, 3), np.int32)
+    band[:, 0, 0] = rng.integers(0, 12, 1024)   # A reference support ~ noise
+    band[:, 2, 1] = rng.integers(0, 500, 1024)  # under a deep C pileup
+    cases.append(("k~lambda band", band, np.zeros(1024, np.int32)))
+    counts, ref = random_loci(3000, SEED + 2, codes=6)
+    ref[::3] = 4                                # reference N: N-row support
+    cases.append(("reference-N rows", counts, ref))
+    worst = 0.0
+    for name, counts, ref in cases:
+        c = torch.from_numpy(counts).to(device)
+        r = torch.from_numpy(ref).to(device)
+        out = K.score_reference_loci(c, r, ScoringParams())
+        torch.cuda.synchronize()
+        plain = K.score_reference_loci_plain(c, r, ScoringParams())
+        worst = max(worst, compare_scores("score_loci", out, plain))
+        log(f"score_loci {name}: matches its plain version (integers and "
+            "by-direction tuples exact, sb_gatk within 1e-3 dB above -40 dB "
+            "and 5% below)")
     return worst
 
 
@@ -213,41 +300,14 @@ def check_tuple_kernel(device):
 # The main path
 # ---------------------------------------------------------------------------
 
-def _body(path):
-    with open(path) as f:
-        return [ln for ln in f.read().splitlines() if not ln.startswith("#")]
-
-
-def _split_sb(line):
-    f = line.split("\t")
-    if f[4] != "." or not f[8].endswith(":SB"):
-        return line, None
-    head, _, sb = line.rpartition(":")
-    return head, float(sb)
-
-
-def compare_vcfs(port, host) -> int:
-    """Every field equal, the reference-line SB within 1e-3 dB (5% below
-    -40 dB) of the f64 host run's. Returns the number of lines."""
-    if len(port) != len(host) or not port:
-        raise AssertionError(f"VCF bodies differ in length: {len(port)} "
-                             f"vs {len(host)}")
-    for a, h in zip(port, host):
-        (ha, sa), (hh, sh) = _split_sb(a), _split_sb(h)
-        if ha != hh:
-            raise AssertionError(f"VCF lines differ:\n{a}\n{h}")
-        if sa is not None:
-            tol = 1e-3 if sh > -40.0 else 0.05 * abs(sh)
-            if abs(sa - sh) > tol:
-                raise AssertionError(f"reference-line SB differs:\n{a}\n{h}")
-    return len(port)
-
-
 def run_main_path(work: str, device):
-    """Phase 3. Returns (kernel entries' launch counts, main-path tuples,
+    """Phase 3. Returns (launch counts, the tuples handed to the tuple
+    kernel, the recorded single-device gVCF scoring inputs and outputs,
     timings and counts for the report)."""
     import torch
-    from pisces_tpu_torch.apps.pisces import main
+    import pisces_tpu_torch.apps.pisces as app
+    import pisces_tpu_torch.calling.fast_gvcf as fast_gvcf
+    from pisces_tpu_torch.entry import compare_vcf_bodies, vcf_body
     from pisces_tpu_torch.ops import scoring_kernels as K
     from pisces_tpu_torch.synthetic import write_synthetic_workload
     from pisces_tpu_torch.utils.metrics import metrics
@@ -259,55 +319,181 @@ def run_main_path(work: str, device):
         f"({N_READS * 100 / CHROM_LEN:.0f}x), written in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # record the tuples the main path hands the kernel, to time it there
-    seen = []
+    # record what the main path hands the kernel and the gVCF scoring: the
+    # tuples, to time the kernel there; the read events, the reference and
+    # the single-device outputs, for the mesh phase
+    seen, rec = [], {}
     launch = K.score_reference_tuples
+    events = app.build_base_events
+    score_positions = fast_gvcf.score_reference_positions
 
     def recording(tuples, params, num_no_calls=None):
         seen.append((tuples, params))
         return launch(tuples, params, num_no_calls)
 
+    def recording_events(*args, **kw):
+        rec["events"] = events(*args, **kw)
+        return rec["events"]
+
+    def recording_positions(pc, refseq, params, **kw):
+        rec["refseq"], rec["params"] = refseq, params
+        rec["single"] = score_positions(pc, refseq, params, **kw)
+        return rec["single"]
+
     K.score_reference_tuples = recording
+    app.build_base_events = recording_events
+    fast_gvcf.score_reference_positions = recording_positions
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = main(["-bam", bam, "-g", genome, "-o", os.path.join(work, "gpu"),
-                   "-gVCF", "true", "-backend", "torch", "-device", "cuda"])
+        rc = app.main(["-bam", bam, "-g", genome, "-o",
+                       os.path.join(work, "gpu"), "-gVCF", "true",
+                       "-backend", "torch", "-device", "cuda"])
         torch.cuda.synchronize()
     finally:
         K.score_reference_tuples = launch
+        app.build_base_events = events
+        fast_gvcf.score_reference_positions = score_positions
     wall = time.perf_counter() - t0
     launches = dict(K.launch_counts)
     peak = torch.cuda.max_memory_allocated(device)
     stages = metrics.snapshot()["stages"]
     if rc != 0:
         raise RuntimeError(f"main path exited {rc}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    if launches["score_tuples"] < 1:
+        raise AssertionError("kernel score_tuples was not launched on the "
+                             "main path")
 
     metrics.reset()
     t0 = time.perf_counter()
-    rc = main(["-bam", bam, "-g", genome, "-o", os.path.join(work, "host"),
-               "-gVCF", "true", "-backend", "numpy", "-device", "cuda"])
+    rc = app.main(["-bam", bam, "-g", genome, "-o", os.path.join(work, "host"),
+                   "-gVCF", "true", "-backend", "numpy", "-device", "cuda"])
     host_wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"-backend numpy run exited {rc}")
-    port = _body(os.path.join(work, "gpu", "b.genome.vcf"))
-    host = _body(os.path.join(work, "host", "b.genome.vcf"))
-    n_lines = compare_vcfs(port, host)
+    port = vcf_body(os.path.join(work, "gpu", "b.genome.vcf"))
+    host = vcf_body(os.path.join(work, "host", "b.genome.vcf"))
+    n_lines = compare_vcf_bodies(port, host)
     n_var = sum(1 for ln in port if ln.split("\t")[4] != "."
                 and ln.split("\t")[6] == "PASS")
     if n_var == 0:
         raise AssertionError("no PASS variant calls on planted SNVs")
     log(f"main path: {n_lines:,} gVCF lines, {n_var} PASS variants; "
         f"matches -backend numpy")
-    return launches, seen, {"wall_s": wall, "host_wall_s": host_wall,
-                            "lines": n_lines, "peak_bytes": peak,
-                            "stages": stages}
+    return launches, seen, rec, {"wall_s": wall, "host_wall_s": host_wall,
+                                 "lines": n_lines, "peak_bytes": peak,
+                                 "stages": stages}
+
+
+# ---------------------------------------------------------------------------
+# The mesh path
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (1, 4)
+
+
+def _per_position(out):
+    return {k: v[out["inv"]] for k, v in out.items()
+            if k not in ("inv", "ref_base")}
+
+
+def run_mesh_path(rec, device):
+    """Phase 4. Returns (the counts kernel's launches in each mesh's run,
+    the largest SB difference, the tile each mesh handed the kernel,
+    per-mesh walls and stages)."""
+    import numpy as np
+    import torch
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.parallel import sharding
+    from pisces_tpu_torch.utils.metrics import metrics
+
+    ev, refseq, params = rec["events"], rec["refseq"], rec["params"]
+    pos1, out1 = rec["single"]
+    want = _per_position(out1)
+    log(f"mesh: {len(ev.gpos):,} recorded events, {len(pos1):,} "
+        "single-device positions")
+    tiles, runs = {}, []
+    launch = sharding.score_reference_loci
+
+    def recording(counts, ref_code, p):
+        tiles.setdefault(n, []).append((counts, ref_code, p))
+        return launch(counts, ref_code, p)
+
+    worst = 0.0
+    launches = {}
+    sharding.score_reference_loci = recording
+    try:
+        for n in MESH_SHARDS:
+            metrics.reset()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            pos, out, stats = sharding.sharded_score_reference_positions(
+                ev, refseq, params, sharding.Mesh([device] * n))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = launches[n] = K.launch_counts["score_loci"]
+            if got != n:
+                raise AssertionError(f"{n}-shard mesh launched score_loci "
+                                     f"{got} times")
+            if not np.array_equal(pos, pos1):
+                raise AssertionError(f"{n}-shard mesh: positions differ")
+            have = _per_position(out)
+            for k in ("total_coverage", "support", "variant_qscore",
+                      "genotype", "gq"):
+                if not np.array_equal(have[k], want[k]):
+                    raise AssertionError(f"{n}-shard mesh: {k} differs")
+            sb = np.clip(have["sb_gatk"], -100.0, 0.0)
+            sb1 = np.clip(want["sb_gatk"], -100.0, 0.0)
+            diff = np.abs(sb - sb1)
+            if (diff > np.where(sb1 > -40.0, 1e-3, 0.05 * np.abs(sb1))).any():
+                raise AssertionError(f"{n}-shard mesh: sb_gatk differs by "
+                                     f"{diff.max()} dB")
+            worst = max(worst, float(diff.max(initial=0.0)))
+            tile = tiles[n][0][0].shape[0]
+            runs.append({"shards": n, "wall_s": wall, "loci_per_launch": tile,
+                         "stats": stats,
+                         "stages": metrics.snapshot()["stages"]})
+            log(f"mesh {n} shard(s) on {device}: {len(pos):,} positions, "
+                f"{n} x {tile:,} loci per launch, {wall:.2f} s; equals the "
+                "single-device outputs (integers exact, sb_gatk within "
+                "1e-3 dB above -40 dB and 5% below)")
+    finally:
+        sharding.score_reference_loci = launch
+    return launches, worst, tiles, runs
+
+
+# ---------------------------------------------------------------------------
+# The entry points
+# ---------------------------------------------------------------------------
+
+def run_entry_points(device) -> float:
+    """Phase 5: entry() on the card against the plain version, then
+    dryrun_multichip over every card; each must launch the counts kernel.
+    Returns the largest float difference."""
+    import torch
+    from pisces_tpu_torch.entry import dryrun_multichip, entry
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.ops.scoring_params import ScoringParams
+
+    K.reset_launch_counts()
+    fn, (counts, ref_code) = entry(device)
+    out = fn(counts, ref_code)
+    torch.cuda.synchronize()
+    if K.launch_counts["score_loci"] != 1:
+        raise AssertionError("entry() did not launch score_loci")
+    plain = K.score_reference_loci_plain(
+        counts.sum(dim=-1, dtype=torch.int32), ref_code, ScoringParams())
+    err = compare_scores("entry()", out, plain)
+    log(f"entry(): {counts.shape[0]:,}-locus tile matches the plain version")
+    n = torch.cuda.device_count()
+    K.reset_launch_counts()
+    dryrun_multichip(n)
+    if K.launch_counts["score_loci"] < 1:
+        raise AssertionError("dryrun_multichip did not launch score_loci")
+    log(f"dryrun_multichip({n}) completed")
+    return err
 
 
 def main_smoke() -> int:
@@ -327,41 +513,73 @@ def main_smoke() -> int:
 
     # phase 1: build
     lib = K.build_kernels()
-    log(f"built {os.path.relpath(lib.path, REPO)} in "
-        f"{lib.build_seconds:.1f} s")
+    log(f"built {', '.join(os.path.relpath(p, REPO) for p in lib.paths.values())}"
+        f" in {lib.build_seconds:.1f} s")
     for line in lib.build_log.splitlines():
-        if "ptxas" in line:
+        if "ptxas" in line or line.endswith(":"):
             log(line.strip())
 
     # phase 2: kernels against their plain versions
-    max_err = check_tuple_kernel(device)
+    err = {"score_tuples": check_tuple_kernel(device),
+           "score_loci": check_loci_kernel(device)}
 
     # phase 3: the main path
     work = os.path.join(REPO, "build", "chip_smoke")
     try:
-        launches, seen, e2e = run_main_path(work, device)
+        launches, seen, rec, e2e = run_main_path(work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # time the kernel and its plain version on the main path's own tuples
+    # phase 4: the mesh path on the main path's events
+    mesh_launches, mesh_err, tiles, mesh_runs = run_mesh_path(rec, device)
+    err["score_loci"] = max(err["score_loci"], mesh_err)
+    del rec
+
+    # phase 5: the entry points
+    err["score_loci"] = max(err["score_loci"], run_entry_points(device))
+
+    # time each kernel and its plain version on the main paths' own inputs
     tuples, params = max(seen, key=lambda s: s[0].shape[0])
     out = K.score_reference_tuples(tuples, params)
     ref = K.score_reference_tuples_plain(tuples, params)
-    max_err = max(max_err, compare_tuples(out, ref))
+    err["score_tuples"] = max(err["score_tuples"],
+                              compare_scores("score_tuples", out, ref))
     ms = cuda_ms(lambda: K.score_reference_tuples(tuples, params))
     plain_ms = cuda_ms(lambda: K.score_reference_tuples_plain(tuples, params),
                        iters=5)
     u = tuples.shape[0]
-    ops = tuple_kernel_ops(tuples, out, params)
-    bytes_moved = u * (6 * 4 + 7 * 4 + 2 * 4)
-    bound_ops = ops / PEAK_F32_OPS * 1e3
-    bound_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = tuple_kernel_ops(tuples, out, params)
+    t_bound, t_by = bound(t_ops, u * (6 * 4 + 7 * 4 + 2 * 4))
     big = torch.from_numpy(random_tuples(200_000)).to(device)
     ms_200k = cuda_ms(lambda: K.score_reference_tuples(big, ScoringParams()))
     log(f"score_tuples at the main path's {u:,} unique tuples: "
-        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {max(bound_ops, bound_bytes):.5f} ms); "
+        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {t_bound:.6f} ms, "
+        f"{t_by}: {t_ops / u:,.0f} f32 operations and 60 bytes per tuple); "
         f"at 200,000 tuples {ms_200k:.4f} ms = "
         f"{200_000 / ms_200k * 1e3:,.0f} loci/s")
+
+    loci = {}
+    for n in MESH_SHARDS:
+        counts, ref_code, lparams = tiles[n][0]
+        lout = K.score_reference_loci(counts, ref_code, lparams)
+        err["score_loci"] = max(err["score_loci"], compare_scores(
+            f"score_loci ({n}-shard mesh tile)", lout,
+            K.score_reference_loci_plain(counts, ref_code, lparams)))
+        log(f"score_loci on the {n}-shard mesh's first tile: matches its "
+            "plain version (integers and by-direction tuples exact, sb_gatk "
+            "within 1e-3 dB above -40 dB and 5% below)")
+        lms = cuda_ms(lambda: K.score_reference_loci(counts, ref_code,
+                                                     lparams))
+        lplain = cuda_ms(lambda: K.score_reference_loci_plain(
+            counts, ref_code, lparams), iters=5)
+        l_ops = loci_kernel_ops(lout, lparams)
+        lbound, lby = bound(l_ops, counts.shape[0] * LOCI_BYTES)
+        loci[n] = (lms, lplain, lbound, lby)
+        log(f"score_loci at the {n}-shard mesh's {counts.shape[0]:,} loci "
+            f"per launch: {lms:.4f} ms (plain {lplain:.3f} ms, bound "
+            f"{lbound:.6f} ms, {lby}: {l_ops / counts.shape[0]:,.0f} f32 "
+            f"operations and {LOCI_BYTES} bytes per locus) = "
+            f"{counts.shape[0] / lms * 1e3:,.0f} loci/s")
 
     reads_s = N_READS / e2e["wall_s"]
     lines_s = e2e["lines"] / e2e["wall_s"]
@@ -370,19 +588,41 @@ def main_smoke() -> int:
         f"-backend numpy {e2e['host_wall_s']:.2f} s")
     log("stages (-backend torch): " + ", ".join(
         f"{k} {v['seconds']:.2f} s" for k, v in e2e["stages"].items()))
-    log(f"peak device memory: {e2e['peak_bytes'] / 2**20:.1f} MiB")
+    for r in mesh_runs:
+        log(f"mesh {r['shards']} shard(s): {r['wall_s']:.2f} s, stages " +
+            ", ".join(f"{k} {v['seconds']:.2f} s"
+                      for k, v in r["stages"].items()) +
+            f"; {r['stats']}")
+    log(f"peak device memory (main path): {e2e['peak_bytes'] / 2**20:.1f} MiB")
 
+    # the counts kernel's line carries the 1-shard mesh run: its launches
+    # and the time and bound of the tile it launched on
+    lms, lplain, lbound, lby = loci[MESH_SHARDS[0]]
+    log("score_loci launches per mesh run: " + ", ".join(
+        f"{n} shard(s) {mesh_launches[n]}" for n in MESH_SHARDS))
     kernels = [{
         "name": "score_tuples",
         "route": "cuda",
         "source": "pisces_tpu_torch/csrc/score_tuples.cu",
         "replaces": "pisces_tpu/ops/pallas_scoring.py:245",
         "launches": launches["score_tuples"],
-        "max_abs_err": max_err,
+        "max_abs_err": err["score_tuples"],
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "bound_ms": t_bound,
+        "bound_by": t_by,
+        "library_ms": None,
+    }, {
+        "name": "score_loci",
+        "route": "cuda",
+        "source": "pisces_tpu_torch/csrc/score_loci.cu",
+        "replaces": "pisces_tpu/ops/pallas_scoring.py:220",
+        "launches": mesh_launches[MESH_SHARDS[0]],
+        "max_abs_err": err["score_loci"],
+        "ms": lms,
+        "plain_ms": lplain,
+        "bound_ms": lbound,
+        "bound_by": lby,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

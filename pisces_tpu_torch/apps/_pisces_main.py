@@ -135,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
            "tuple-scoring kernel and large candidate batches run on -device; "
            "integer outputs are exact vs the f64 host path, and floats "
            "emitted in variant lines stay on the host f64 path for byte "
-           "parity). numpy forces everything onto the host.")
+           "parity). numpy forces everything onto the host, except the "
+           "-MeshDevices reference scoring.")
     a("-device", default="cuda", choices=["cuda", "cpu"],
       help="torch device (default cuda; raises when CUDA is absent)")
     a("-resume", default="false",
@@ -144,8 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="stream chromosomes in windows of this many bases via the .bai "
            "index (not yet ported); 0 = whole-chromosome")
     a("-meshdevices", type=int, default=0,
-      help="shard the dense per-locus scoring over an N-device mesh "
-           "(not yet ported); 0 = single device")
+      help="shard the gVCF reference scoring and large candidate batches "
+           "over a mesh of N devices of -device's type (with cuda, N "
+           "cards); 0 or 1 = single device")
     a("-multihost", default="false",
       help="run as one process of a multi-host job (not yet ported)")
     a("-profiledir", default=None,

@@ -7,11 +7,13 @@ scoring, VCF/gVCF output.
 
 This slice runs whole chromosomes serially through the pure-Python read
 flow (BamReader -> build_base_events -> device count build), with somatic
-ploidy, the default filters and optional -IntervalPaths. Options outside it
-raise NotImplementedError naming the ROADMAP item that ports them.
+ploidy, the default filters, optional -IntervalPaths and -MeshDevices N
+(the gVCF reference scoring and large candidate batches sharded over N
+devices of -device's type, parallel/sharding.py). Options outside it raise
+NotImplementedError naming the ROADMAP item that ports them.
 
     python -m pisces_tpu_torch.apps.pisces -bam B -g G -o O -gVCF true \\
-        [-device cuda|cpu] [-backend torch|numpy]
+        [-device cuda|cpu] [-backend torch|numpy] [-MeshDevices N]
 """
 from __future__ import annotations
 
@@ -53,8 +55,6 @@ def check_ported(options: PiscesApplicationOptions) -> None:
     w = options.vcf_writing_parameters
     if options.window_size > 0:
         raise _not_ported("-WindowSize", 2)
-    if options.mesh_devices > 1:
-        raise _not_ported("-MeshDevices > 1", 4)
     if v.ploidy_model != PloidyModel.SOMATIC:
         raise _not_ported(f"ploidy {v.ploidy_model.name}", 6)
     checks = [
@@ -84,18 +84,21 @@ def _fast_gvcf_eligible(options: PiscesApplicationOptions) -> bool:
 
 
 def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
-                    bam: BamReader, intervals=None, device="cuda"):
+                    bam: BamReader, intervals=None, device="cuda", mesh=None):
     """Run the full calling pipeline for one chromosome.
 
     `device` is the torch device for the count build, the tuple-scoring
     kernel and large candidate batches ("cuda" unless the caller passes
     "cpu"); None runs everything on the host in numpy (-backend numpy).
+    `mesh` (parallel/sharding.Mesh, -MeshDevices > 1) scores the gVCF
+    reference loci sharded over its devices from the read events.
     Returns the called alleles in genome order, plus the columnar reference
     lines (positions, lines) when the fast gVCF path applies.
     """
     device = resolve_device(device) if device is not None else None
     cfg = CallerConfig.from_options(options)
     cfg.device = device
+    cfg.mesh = mesh
     bf = options.bam_filter_parameters
     if bam.header.source_is_stitched:
         raise _not_ported("stitched (XD) input", 7)
@@ -168,9 +171,19 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
             sb_acceptance=v.strand_bias_acceptance_criteria,
             no_call_filter=v.no_call_filter_threshold)
         with metrics.stage("gvcf_scoring"):
-            positions, scored = score_reference_positions(
-                pc, chrom.sequence, params, device=device,
-                intervals=intervals)
+            if mesh is not None:
+                from pisces_tpu_torch.parallel.sharding import (
+                    sharded_score_reference_positions,
+                )
+                positions, scored, shard_stats = \
+                    sharded_score_reference_positions(
+                        ev, chrom.sequence, params, mesh, intervals)
+                for name, n in shard_stats.items():
+                    metrics.count(name, n)
+            else:
+                positions, scored = score_reference_positions(
+                    pc, chrom.sequence, params, device=device,
+                    intervals=intervals)
         metrics.count("loci_scored", len(positions))
         metrics.device_watermark(device)
         if scored is not None:
@@ -248,7 +261,10 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
     """Call one BAM, chromosome by chromosome; returns the VCF path.
 
     `device` is "cuda" unless the caller asks for "cpu"; it raises when
-    CUDA is absent. backend "numpy" keeps all scoring on the f64 host path.
+    CUDA is absent. backend "numpy" keeps all scoring but the mesh's on the
+    f64 host path. With options.mesh_devices > 1 the gVCF reference loci
+    score on a mesh of that many devices of `device`'s type (raises when
+    CUDA has fewer cards).
     """
     if backend not in ("torch", "numpy"):
         raise ValueError(f"backend must be torch or numpy, got {backend!r}")
@@ -256,6 +272,10 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
     score_device = device if backend == "torch" else None
     check_ported(options)
     options.validate()
+    mesh = None
+    if options.mesh_devices > 1:
+        from pisces_tpu_torch.parallel.sharding import get_mesh
+        mesh = get_mesh(options.mesh_devices, device)
     bam = BamReader(bam_path)
     gvcf = options.vcf_writing_parameters.output_gvcf_file
     if out_vcf is None:
@@ -286,7 +306,7 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
             intervals = _load_intervals(options, chrom_name)
             t0 = time.time()
             result = call_chromosome(options, chrom, bam, intervals,
-                                     score_device)
+                                     score_device, mesh)
             if isinstance(result, tuple):
                 alleles, ref_lines = result
                 write_spliced(writer, alleles, ref_lines)

@@ -14,10 +14,13 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from pisces_tpu_torch.parallel.sharding import Mesh
 
 from pisces_tpu_torch.domain.types import (
     AlleleCategory, FilterType, Genotype, NoiseModel,
@@ -81,6 +84,9 @@ class CallerConfig:
     # parity; integer q outputs are exact either way.
     device: Optional[torch.device] = None
     device_batch_threshold: int = 4096
+    # a parallel/sharding.Mesh (-MeshDevices > 1): device candidate batches
+    # shard over its devices (sharded_score_snv_tuples)
+    mesh: Optional[Mesh] = None
     # -gender: drives per-chromosome ploidy dispatch (sex chromosomes go
     # haploid, GenotypeCreator.GetPloidyForThisChr)
     is_male: Optional[bool] = None
@@ -373,6 +379,16 @@ class AlleleCaller:
             min_gq=cfg.min_gq_score, max_gq=cfg.max_gq_score,
             sb_acceptance=cfg.strand_bias_filter_threshold,
             no_call_filter=cfg.no_call_filter_threshold or 1.0)
+        if cfg.mesh is not None:
+            # shard the candidate batch over the mesh — the mesh analog of
+            # per-candidate scoring inside each (bam, chr) job
+            from pisces_tpu_torch.parallel.sharding import (
+                sharded_score_snv_tuples,
+            )
+            out = sharded_score_snv_tuples(
+                sup_by_dir, cov_by_dir, ref_support, num_no_calls, cov,
+                params, cfg.mesh)
+            return out["variant_qscore"].astype(np.int64)
 
         def dev(x):
             return torch.from_numpy(

@@ -1,7 +1,8 @@
 // Reference-locus scoring from unique (support, coverage)-by-direction
 // tuples: the Hopper (sm_90a) version of the reference package's Pallas
 // kernel `_tuples_kernel` (pisces_tpu/ops/pallas_scoring.py:245-258, body
-// `_score_rows` :130-217 and its f32 helpers :49-127).
+// `_score_rows` :130-217 and its f32 helpers :49-127, shared with the
+// counts kernel in score_locus.cuh).
 //
 // Contract, per locus i of n:
 //   in   tuples [n, 6] int32  (support F, R, S, coverage F, R, S)
@@ -20,236 +21,12 @@
 //
 // What the design does about it: one thread per locus, no shared memory,
 // no synchronisation, so every SM keeps as many warps in flight as its
-// registers allow and the divide/SFU pipes stay busy. Each tail evaluates
-// only the series branch it selects (the Pallas kernel computes both and
-// selects per lane, which a SIMD TPU core must do anyway). The math is the
-// Pallas helpers' f32 arithmetic step for step, built without fast math
-// and without FMA contraction (-fmad=false), so the plain PyTorch version
-// beside the wrapper (ops/scoring_kernels.score_reference_tuples_plain)
-// rounds the same way: jnp.round's half-to-even is rintf, the integer
-// halving of stitched counts is integer division, and the no-bias sentinel
-// is -1e38 as in the Pallas kernel.
+// registers allow and the divide/SFU pipes stay busy.
 //
-// The launcher allocates nothing, runs on the caller's stream, and returns
-// cudaGetLastError() so the wrapper can raise on a refused launch.
+// The launcher allocates nothing, runs on the caller's stream and device,
+// and returns the CUDA error so the wrapper can raise on a refused launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kSeries = 64;
-constexpr float kLn10 = 2.302585092994046f;
-constexpr float kHalfLn2Pi = 0.9189385332046727f;
-
-}  // namespace
-
-// Scoring configuration. The floats are the Pallas kernel's f32 constants,
-// computed in f64 on the host and cast; the ints are the genotype codes and
-// filter bits of pisces_tpu_torch/domain/types.py and ops/scoring_params.py.
-struct ScoreParams {
-  float noise_freq;
-  float log1m_noise;
-  float max_variant_qscore;
-  float min_frequency_filter;
-  float min_depth;
-  float target_lod;
-  float min_gq;
-  float max_gq;
-  float low_depth_filter;
-  int32_t variant_qscore_filter;
-  int32_t min_gq_int;
-  int32_t gt_hom_ref;
-  int32_t gt_ref_like_nocall;
-  int32_t gt_ref_and_nocall;
-  int32_t bit_low_depth;
-  int32_t bit_low_variant_qscore;
-};
-
-// lgamma(k+1) for k >= 0: 8-step shift, then Stirling (_lgamma1p).
-__device__ float lgamma1p(float k) {
-  float z = k + 1.0f;
-  float shift = 0.0f;
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    if (z < 8.0f) {
-      shift = shift - logf(z);
-      z = z + 1.0f;
-    }
-  }
-  const float zi = 1.0f / z;
-  const float zi2 = zi * zi;
-  const float stir = (z - 0.5f) * logf(z) - z + kHalfLn2Pi +
-                     zi * ((float)(1.0 / 12.0) -
-                           zi2 * ((float)(1.0 / 360.0) - zi2 / 1260.0f));
-  return stir + shift;
-}
-
-// ln Poisson pmf(k; lam), safe at k=0 / lam=0 (_log_pmf).
-__device__ float log_pmf(float k, float lam) {
-  return k * logf(fmaxf(lam, 1e-30f)) - lam - lgamma1p(k);
-}
-
-// sum_{j>=0} prod_{i=1..j} lam/(k+i) (_upper_series).
-__device__ float upper_series(float k, float lam) {
-  float term = 1.0f, acc = 1.0f;
-  for (int j = 1; j <= kSeries; ++j) {
-    term = term * lam / (k + (float)j);
-    acc = acc + term;
-  }
-  return acc;
-}
-
-// sum_{j>=0} prod_{i=0..j-1} (m-i)/lam (_lower_series).
-__device__ float lower_series(float m, float lam) {
-  const float safe_lam = fmaxf(lam, 1e-30f);
-  float term = 1.0f, acc = 1.0f;
-  for (int j = 1; j <= kSeries; ++j) {
-    term = term * fmaxf(m - (float)(j - 1), 0.0f) / safe_lam;
-    acc = acc + term;
-  }
-  return acc;
-}
-
-// P(X >= k) and its log10 (_poisson_tail): the upper series when k > lam,
-// the lower-series complement otherwise; k <= 0 means "always".
-__device__ void poisson_tail(float k, float lam, float* tail,
-                             float* log10_tail) {
-  if (k <= 0.0f) {
-    *tail = 1.0f;
-    *log10_tail = 0.0f;
-    return;
-  }
-  if (k > lam) {
-    const float up_log = (log_pmf(k, lam) + logf(upper_series(k, lam))) /
-                         kLn10;
-    *log10_tail = up_log;
-    *tail = expf(up_log * kLn10);
-  } else {
-    const float m = fmaxf(k - 1.0f, 0.0f);
-    const float low = expf(log_pmf(m, lam)) * lower_series(m, lam);
-    const float low_tail = fmaxf(1.0f - low, 1e-38f);
-    *log10_tail = log10f(low_tail);
-    *tail = low_tail;
-  }
-}
-
-// P(X <= trunc(m)) in linear space (_lower_cdf), the GQ Poisson gate.
-__device__ float lower_cdf(float m, float lam) {
-  const float mt = truncf(fmaxf(m, 0.0f));
-  if (mt + 1.0f > lam) {
-    const float upper = expf(log_pmf(mt + 1.0f, lam)) *
-                        upper_series(mt + 1.0f, lam);
-    return fmaxf(1.0f - upper, 0.0f);
-  }
-  const float low = expf(log_pmf(mt, lam)) * lower_series(mt, lam);
-  return fminf(low, 1.0f);
-}
-
-// Extended-model PopulateStats (_sb_stats): chance of a false positive and
-// chance that the variant frequency is above zero.
-__device__ void sb_stats(float support, float coverage, const ScoreParams& p,
-                         float* cfp, float* cvfgz) {
-  if (support <= 0.0f) {
-    const float z = expf(coverage * p.log1m_noise);
-    *cvfgz = z;
-    *cfp = 1.0f - z;
-    return;
-  }
-  float tail, lt;
-  poisson_tail(support, coverage * p.noise_freq, &tail, &lt);
-  *cvfgz = fmaxf(0.0f, 1.0f - tail);
-  *cfp = fmaxf(tail, 0.0f);
-}
-
-struct ScoreOut {
-  int32_t total, support, q, gt, gq, filter_bits;
-  float freq, sb_gatk;
-};
-
-// The shared reference-locus scoring math (_score_rows) for one locus.
-// Kept separate from the tuple kernel so that the counts-input kernel
-// (_scoring_kernel) can reuse it when it is ported.
-__device__ ScoreOut score_locus(const float sup[3], const float cov[3],
-                                int32_t sup_s, int32_t cov_s,
-                                const ScoreParams& p) {
-  ScoreOut o;
-  const float total = cov[0] + cov[1] + cov[2];
-  const float support = sup[0] + sup[1] + sup[2];
-
-  // Poisson q-score: p = P(X >= support), lam = err * cov
-  const float lam = p.noise_freq * total;
-  float tail, log10_p;
-  poisson_tail(support, lam, &tail, &log10_p);
-  const float q = fminf(fmaxf(-10.0f * log10_p, 0.0f), p.max_variant_qscore);
-  int32_t qi = (int32_t)rintf(q);
-  if (support <= 0.0f || total <= 0.0f) qi = 0;
-
-  const float freq =
-      total <= 0.0f ? 0.0f : fminf(support / fmaxf(total, 1.0f), 1.0f);
-
-  // strand bias (Extended model); stitched counts split by integer halving
-  const float half_s = (float)(sup_s / 2);
-  const float half_c = (float)(cov_s / 2);
-  float ov_cfp, ov_cvfgz, fw_cfp, fw_cvfgz, rv_cfp, rv_cvfgz;
-  sb_stats(support, total, p, &ov_cfp, &ov_cvfgz);
-  sb_stats(sup[0] + half_s, cov[0] + half_c, p, &fw_cfp, &fw_cvfgz);
-  sb_stats(sup[1] + half_s, cov[1] + half_c, p, &rv_cfp, &rv_cvfgz);
-  float score;
-  if (ov_cvfgz == 0.0f) {
-    score = 1.0f;
-  } else {
-    const float fwd = fw_cvfgz * rv_cfp / ov_cvfgz;
-    const float rev = rv_cvfgz * fw_cfp / ov_cvfgz;
-    score = fmaxf(fwd, rev);
-  }
-  const bool cov_both = (cov[0] + half_c > 0.0f) && (cov[1] + half_c > 0.0f);
-  if (!cov_both) score = 0.0f;
-  float gatk =
-      score > 0.0f ? 10.0f * log10f(fmaxf(score, 1e-38f)) : -1e38f;
-  if (!(support > 0.0f)) gatk = 0.0f;
-
-  // somatic genotype of a reference locus
-  int32_t gt = p.gt_hom_ref;
-  if (freq < p.min_frequency_filter) gt = p.gt_ref_like_nocall;
-  if (freq >= p.min_frequency_filter &&
-      (1.0f - freq) > p.min_frequency_filter)
-    gt = p.gt_ref_and_nocall;
-  if (total < p.min_depth) gt = p.gt_ref_like_nocall;
-
-  // GQ (SomaticGenotypeQualityCalculator, hom branch)
-  const float non_allele = (1.0f - freq) * total;
-  const float expected = p.target_lod * total;
-  float raw;
-  if (gt == p.gt_hom_ref) {
-    if (non_allele >= expected) {
-      raw = p.min_gq;
-    } else {
-      const float p1 = powf(10.0f, -(float)qi / 10.0f);
-      const float p2 = lower_cdf(non_allele, expected);
-      raw = -10.0f * log10f(fmaxf(p1 + p2, 1e-38f));
-    }
-  } else {
-    raw = (float)qi;
-  }
-  int32_t gq = (int32_t)rintf(fminf(fmaxf(raw, p.min_gq), p.max_gq));
-  if (total <= 0.0f || gt == p.gt_ref_like_nocall) gq = p.min_gq_int;
-
-  int32_t fb = 0;
-  if (total < p.low_depth_filter) fb |= 1 << p.bit_low_depth;
-  if (qi < p.variant_qscore_filter && total != 0.0f)
-    fb |= 1 << p.bit_low_variant_qscore;
-
-  o.total = (int32_t)total;
-  o.support = (int32_t)support;
-  o.q = qi;
-  o.gt = gt;
-  o.gq = gq;
-  o.filter_bits = fb;
-  o.freq = freq;
-  o.sb_gatk = gatk;
-  return o;
-}
+#include "score_locus.cuh"
 
 __global__ void score_tuples_kernel(const int32_t* __restrict__ tuples,
                                     const int32_t* __restrict__ num_nc,
@@ -276,13 +53,14 @@ __global__ void score_tuples_kernel(const int32_t* __restrict__ tuples,
 extern "C" int score_tuples_launch(const int32_t* tuples,
                                    const int32_t* num_nc, int64_t n,
                                    int32_t* out_i, float* out_f,
-                                   const ScoreParams* params,
+                                   const ScoreParams* params, int device,
                                    void* stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 256;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
-  score_tuples_kernel<<<(unsigned int)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(tuples, num_nc, n, out_i,
-                                                out_f, *params);
-  return (int)cudaGetLastError();
+  return launch_on(device, [&] {
+    score_tuples_kernel<<<(unsigned int)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(tuples, num_nc, n, out_i,
+                                                  out_f, *params);
+  });
 }

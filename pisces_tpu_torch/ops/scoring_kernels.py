@@ -5,16 +5,27 @@ PyTorch versions.
 tuples of gVCF reference loci. It replaces the reference package's Pallas
 kernel `_tuples_kernel` (pisces_tpu/ops/pallas_scoring.py:245-258, reached
 through `score_reference_tuples_pallas` :295-313) with the CUDA C++ kernel in
-csrc/score_tuples.cu, built for sm_90a with nvcc at first use and bound
-with ctypes. Its source says what bounds it and what its design does about
-that.
+csrc/score_tuples.cu.
+
+`score_reference_loci` scores reference loci from their raw [L, 6, 3]
+counts and reference codes, for the mesh step (parallel/sharding.py) and
+entry.py. It replaces `_scoring_kernel` (:220-242, reached through
+`score_reference_loci_pallas` :316-336) with csrc/score_loci.cu. Support is
+the count of the row the reference code names, for any code 0-5: the XLA
+semantics of the path it serves, where the Pallas kernel gives zero support
+at a reference N.
+
+Both kernels share the scoring math (csrc/score_locus.cuh), are built for
+sm_90a with nvcc at first use and bound with ctypes; their sources say what
+bounds them and what their design does about that.
 
 `score_reference_tuples_plain` is a line-by-line torch transliteration of
-the Pallas kernel's `_score_rows` and its f32 helpers (:49-217). The wrapper
-takes it only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises. The CPU tests hold the plain version against the Pallas
-kernel in interpret mode, and chip_smoke.py holds the kernel against the
-plain version on the card.
+the Pallas kernels' `_score_rows` and its f32 helpers (:49-217), and
+`score_reference_loci_plain` its counts prologue in torch in front of it.
+Each wrapper takes its plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises. The CPU tests hold the plain
+versions against the Pallas kernels in interpret mode, and chip_smoke.py
+holds the kernels against the plain versions on the card.
 """
 from __future__ import annotations
 
@@ -29,7 +40,10 @@ from typing import Dict, Optional
 
 import torch
 
-from pisces_tpu_torch.domain.types import Genotype
+from pisces_tpu_torch.domain.types import (
+    COVERAGE_CONTRIBUTING_ALLELES, NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES,
+    AlleleType, Genotype,
+)
 from pisces_tpu_torch.ops.scoring_params import (
     FILTER_BIT_LOW_DEPTH, FILTER_BIT_LOW_VARIANT_QSCORE, ScoringParams,
 )
@@ -40,7 +54,11 @@ HALF_LN_2PI = 0.9189385332046727
 _F32 = torch.float32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "score_tuples.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_HEADER = os.path.join(_CSRC, "score_locus.cuh")
+# each kernel's source; each builds into a library of its own
+SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
+           for name in ("score_tuples", "score_loci")}
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 # -fmad=false: no FMA contraction, so each f32 step rounds like the plain
 # version's; no fast math: logf/expf/divide keep their IEEE accuracy, which
@@ -51,7 +69,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches since the last reset, counted by the wrapper where it
 # launches (chip_smoke.py reads them to show the main path used the kernel)
-launch_counts: Dict[str, int] = {"score_tuples": 0}
+launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 
 
 def reset_launch_counts() -> None:
@@ -239,11 +257,35 @@ def score_reference_tuples_plain(tuples: torch.Tensor, params: ScoringParams,
                           zero_i)
 
     nc = (num_no_calls if num_no_calls is not None else zero_i)
-    return _out_dict(tuples, total.to(torch.int32), support.to(torch.int32),
-                     qi, gt, gq, fb, nc, freq, gatk)
+    return _out_dict(tuples[:, 0:3], tuples[:, 3:6], total.to(torch.int32),
+                     support.to(torch.int32), qi, gt, gq, fb, nc, freq, gatk)
 
 
-def _out_dict(tuples, total, support, q, gt, gq, fb, nc, freq, gatk):
+_COV_ALLELES = tuple(int(a) for a in COVERAGE_CONTRIBUTING_ALLELES)
+
+
+def score_reference_loci_plain(counts: torch.Tensor, ref_code: torch.Tensor,
+                               params: ScoringParams):
+    """Plain torch version of the counts kernel (same contract as
+    score_reference_loci): the Pallas prologue in f32, with support taken
+    from the row the reference code names, then the tuple math. Runs on the
+    tensors' device."""
+    _check_loci_inputs(counts, ref_code)
+    c = counts.to(_F32)
+    cov = c[:, _COV_ALLELES[0], :]
+    for a in _COV_ALLELES[1:]:
+        cov = cov + c[:, a, :]
+    ok = (ref_code >= 0) & (ref_code < NUM_ALLELE_TYPES)
+    rows = torch.arange(counts.shape[0], device=counts.device)
+    sup = c[rows, torch.where(ok, ref_code, 0).to(torch.int64), :]
+    sup = torch.where(ok[:, None], sup, torch.zeros_like(sup))
+    tuples = torch.cat([sup, cov], 1).to(torch.int32)
+    nc = counts[:, int(AlleleType.N), :].sum(dim=1, dtype=torch.int32)
+    return score_reference_tuples_plain(tuples, params, num_no_calls=nc)
+
+
+def _out_dict(sup_by_dir, cov_by_dir, total, support, q, gt, gq, fb, nc,
+              freq, gatk):
     """The Pallas wrapper's output contract (_out_dict, :261-274)."""
     return {
         "total_coverage": total,
@@ -255,17 +297,17 @@ def _out_dict(tuples, total, support, q, gt, gq, fb, nc, freq, gatk):
         "num_no_calls": nc,
         "frequency": freq,
         "sb_gatk": gatk,
-        "coverage_by_dir": tuples[:, 3:6],
-        "support_by_dir": tuples[:, 0:3],
+        "coverage_by_dir": cov_by_dir,
+        "support_by_dir": sup_by_dir,
     }
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 class _ScoreParams(ctypes.Structure):
-    """Mirror of `struct ScoreParams` in csrc/score_tuples.cu."""
+    """Mirror of `struct ScoreParams` in csrc/score_locus.cuh."""
 
     _fields_ = [(name, ctypes.c_float) for name in (
         "noise_freq", "log1m_noise", "max_variant_qscore",
@@ -288,19 +330,31 @@ def _c_params(params: ScoringParams) -> _ScoreParams:
         FILTER_BIT_LOW_DEPTH, FILTER_BIT_LOW_VARIANT_QSCORE)
 
 
-class KernelLibrary:
-    """The built shared library and what its build reported."""
+_P = ctypes.c_void_p
+# each launcher's C arguments: its two input pointers, n, its output
+# pointers, params, the device ordinal and the stream
+_ARGTYPES = {
+    "score_tuples": [_P, _P, ctypes.c_int64, _P, _P,
+                     ctypes.POINTER(_ScoreParams), ctypes.c_int, _P],
+    "score_loci": [_P, _P, ctypes.c_int64, _P, _P, _P,
+                   ctypes.POINTER(_ScoreParams), ctypes.c_int, _P],
+}
 
-    def __init__(self, path: str, build_seconds: float, build_log: str):
-        self.path = path
+
+class KernelLibrary:
+    """The built kernel libraries and what their build reported."""
+
+    def __init__(self, paths: Dict[str, str], build_seconds: float,
+                 build_log: str):
+        self.paths = paths
         self.build_seconds = build_seconds
         self.build_log = build_log
-        self.lib = ctypes.CDLL(path)
-        fn = self.lib.score_tuples_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.POINTER(_ScoreParams), ctypes.c_void_p]
+        self.launchers = {}
+        for name, path in paths.items():
+            fn = getattr(ctypes.CDLL(path), f"{name}_launch")
+            fn.restype = ctypes.c_int
+            fn.argtypes = _ARGTYPES[name]
+            self.launchers[name] = fn
 
 
 _library: Optional[KernelLibrary] = None
@@ -318,33 +372,59 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> KernelLibrary:
-    """Build (once per source and flag set) and load the kernel library.
+    """Build (once per source and flag set) and load the kernel libraries.
 
-    The .so goes into pisces_tpu_torch/build/, named by a hash of the source
-    and flags, so an edited source never loads a stale build."""
+    Each .so goes into pisces_tpu_torch/build/, named by a hash of its
+    source, the shared header and the flags, so an edited source never
+    loads a stale build. Missing libraries build in parallel, one nvcc per
+    source; a failed build raises."""
     global _library
     if _library is not None:
         return _library
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"libscore_tuples-{digest.hexdigest()[:12]}.so")
+    with open(_HEADER, "rb") as f:
+        header = f.read()
+    paths = {}
+    for name, src in SOURCES.items():
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + header
+                                    + " ".join(NVCC_FLAGS).encode())
+        paths[name] = os.path.join(
+            BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
     t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(out):
+    todo = [name for name, out in paths.items() if not os.path.exists(out)]
+    logs = []
+    if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        nvcc = _nvcc()
+        builds = {}
         try:
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                                 capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{log}")
-            os.replace(tmp, out)
+            for name in todo:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                builds[name] = (tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            failed = []
+            for name, (tmp, proc) in builds.items():
+                out, _ = proc.communicate()
+                logs.append(f"{name}:\n{out}")
+                if proc.returncode != 0:
+                    failed.append(name)
+                else:
+                    os.replace(tmp, paths[name])
+            if failed:
+                raise RuntimeError("nvcc failed building "
+                                   + ", ".join(SOURCES[n] for n in failed)
+                                   + ":\n" + "\n".join(logs))
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    _library = KernelLibrary(out, time.perf_counter() - t0, log)
+            for tmp, proc in builds.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    _library = KernelLibrary(paths, time.perf_counter() - t0, "".join(logs))
     return _library
 
 
@@ -365,6 +445,47 @@ def _check_inputs(tuples: torch.Tensor,
                              "tensor on the tuples' device")
 
 
+def _check_loci_inputs(counts: torch.Tensor, ref_code: torch.Tensor) -> None:
+    shape = (NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES)
+    if (counts.dtype != torch.int32 or counts.dim() != 3
+            or tuple(counts.shape[1:]) != shape):
+        raise ValueError(f"counts must be int32 [L, 6, 3], got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+    if not counts.is_contiguous():
+        raise ValueError("counts must be contiguous")
+    if (ref_code.dtype != torch.int32
+            or tuple(ref_code.shape) != (counts.shape[0],)
+            or ref_code.device != counts.device
+            or not ref_code.is_contiguous()):
+        raise ValueError("ref_code must be a contiguous int32 [L] tensor on "
+                         "the counts' device")
+
+
+def _launch(name: str, like: torch.Tensor, n: int, inputs, outputs,
+            params: ScoringParams) -> None:
+    """Launch kernel `name` over n loci on `like`'s device and current
+    stream (pointers of its two inputs, then of its outputs); raises on a
+    refused launch."""
+    fn = build_kernels().launchers[name]
+    cparams = _c_params(params)
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    err = fn(*inputs, n, *outputs, ctypes.byref(cparams), like.device.index,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA
+    tensor (the kernel runs); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
 def score_reference_tuples(tuples: torch.Tensor, params: ScoringParams,
                            num_no_calls: Optional[torch.Tensor] = None):
     """Score gVCF reference loci from their direction tuples.
@@ -378,28 +499,48 @@ def score_reference_tuples(tuples: torch.Tensor, params: ScoringParams,
     (int32), frequency, sb_gatk (f32), and the [U, 3] by-direction inputs.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
-    the sm_90a kernel on the current stream.
+    the sm_90a kernel on the tensor's device and current stream.
     """
     _check_inputs(tuples, num_no_calls)
-    if tuples.device.type == "cpu":
+    if not _on_cuda(tuples):
         return score_reference_tuples_plain(tuples, params, num_no_calls)
-    if tuples.device.type != "cuda":
-        raise ValueError(f"no kernel for device {tuples.device}")
-    lib = build_kernels()
     n = tuples.shape[0]
     out_i = torch.empty((7, n), dtype=torch.int32, device=tuples.device)
     out_f = torch.empty((2, n), dtype=_F32, device=tuples.device)
-    if n == 0:
-        return _out_dict(tuples, *out_i, *out_f)
-    cparams = _c_params(params)
-    stream = torch.cuda.current_stream(tuples.device).cuda_stream
-    err = lib.lib.score_tuples_launch(
-        tuples.data_ptr(),
-        num_no_calls.data_ptr() if num_no_calls is not None else None,
-        n, out_i.data_ptr(), out_f.data_ptr(), ctypes.byref(cparams), stream)
-    if err != 0:
-        raise RuntimeError(f"score_tuples kernel launch failed: CUDA error "
-                           f"{err}")
-    launch_counts["score_tuples"] += 1
-    return _out_dict(tuples, out_i[0], out_i[1], out_i[2], out_i[3],
-                     out_i[4], out_i[5], out_i[6], out_f[0], out_f[1])
+    if n > 0:
+        nc = num_no_calls.data_ptr() if num_no_calls is not None else None
+        _launch("score_tuples", tuples, n, (tuples.data_ptr(), nc),
+                (out_i.data_ptr(), out_f.data_ptr()), params)
+    return _out_dict(tuples[:, 0:3], tuples[:, 3:6], *out_i, *out_f)
+
+
+def score_reference_loci(counts: torch.Tensor, ref_code: torch.Tensor,
+                         params: ScoringParams):
+    """Score gVCF reference loci from their counts.
+
+    Args:
+      counts: int32 [L, 6, 3] anchor-summed counts (allele, direction),
+        contiguous
+      ref_code: int32 [L] reference allele codes, on the counts' device
+      params: ScoringParams
+    Returns the dict contract of the Pallas wrapper
+    (score_reference_loci_pallas): [L] total_coverage, support,
+    variant_qscore, genotype, gq, filter_bits, num_no_calls (int32),
+    frequency, sb_gatk (f32), and [L, 3] coverage_by_dir, support_by_dir.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    the sm_90a kernel on the tensor's device and current stream.
+    """
+    _check_loci_inputs(counts, ref_code)
+    if not _on_cuda(counts):
+        return score_reference_loci_plain(counts, ref_code, params)
+    n = counts.shape[0]
+    out_i = torch.empty((7, n), dtype=torch.int32, device=counts.device)
+    out_f = torch.empty((2, n), dtype=_F32, device=counts.device)
+    out_dir = torch.empty((2, n, 3), dtype=torch.int32, device=counts.device)
+    if n > 0:
+        _launch("score_loci", counts, n,
+                (counts.data_ptr(), ref_code.data_ptr()),
+                (out_i.data_ptr(), out_f.data_ptr(), out_dir.data_ptr()),
+                params)
+    return _out_dict(out_dir[1], out_dir[0], *out_i, *out_f)

@@ -19,6 +19,14 @@ the f64 host oracle (-backend numpy): within 1e-3 dB above -40 dB and 5%
 below, the Pallas kernel's own tolerances (tests/test_pallas_scoring.py).
 With -backend numpy both packages are all-host f64 and must be
 byte-equal.
+
+-MeshDevices N runs are held the same way against the reference package's
+-MeshDevices N (its shard_map step on conftest's 8 virtual XLA CPU
+devices), and must be byte-equal to the port's own single-device run: the
+mesh's counts kernel and the single-device tuple kernel run the same f32
+math on the same integer sums. entry() and dryrun_multichip, the port's
+counterparts of the reference package's __graft_entry__, are held against
+it.
 """
 import ast
 import os
@@ -33,7 +41,10 @@ import pisces_tpu.calling.fast_gvcf as jax_fast_gvcf
 import pisces_tpu.io.native as jax_native
 from pisces_tpu.apps.pisces import main as jax_main
 from pisces_tpu.io.bam import BamReader as JaxBamReader
+import numpy as np
+
 import pisces_tpu_torch.calling.fast_gvcf as torch_fast_gvcf
+from pisces_tpu_torch import entry as torch_entry
 from pisces_tpu_torch.apps.pisces import main as torch_main
 from pisces_tpu_torch.synthetic import write_synthetic_workload
 
@@ -129,6 +140,85 @@ def test_intervals_match_jax(workload, device_everywhere):
     assert sum(ln.startswith("chr2\t") for ln in port) == 2401
 
 
+@pytest.fixture(scope="module")
+def reference_runs():
+    """Runs shared by the mesh cases: (package, intervals) -> VCF body."""
+    return {}
+
+
+@pytest.mark.parametrize("with_intervals", [False, True])
+@pytest.mark.parametrize("mesh", ["2", "8"])
+def test_mesh_matches_jax_mesh_and_single_device(workload, device_everywhere,
+                                                 reference_runs, monkeypatch,
+                                                 mesh, with_intervals):
+    from pisces_tpu_torch.parallel import sharding
+    tmp, bam, genome, intervals = workload
+    iv = ["-IntervalPaths", intervals] if with_intervals else []
+    tag = f"m{mesh}{'i' if with_intervals else ''}"
+    calls = []
+    for name in ("sharded_score_reference_positions",
+                 "sharded_score_snv_tuples"):
+        fn = getattr(sharding, name)
+        monkeypatch.setattr(sharding, name, lambda *a, _fn=fn, _n=name, **k:
+                            calls.append(_n) or _fn(*a, **k))
+    port = _run(torch_main, bam, genome, os.path.join(tmp, f"t{tag}"),
+                "true", ["-device", "cpu", "-MeshDevices", mesh, *iv])
+    # both chromosomes' reference loci and candidates crossed the mesh
+    assert calls.count("sharded_score_reference_positions") == 2
+    assert calls.count("sharded_score_snv_tuples") >= 2
+    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"j{tag}"), "true",
+               ["-backend", "jax", "-MeshDevices", mesh, *iv])
+    for name, main, extra in (
+            ("host", jax_main, ["-backend", "numpy"]),
+            ("single", torch_main, ["-device", "cpu"])):
+        key = (name, with_intervals)
+        if key not in reference_runs:
+            reference_runs[key] = _run(
+                main, bam, genome,
+                os.path.join(tmp, f"{name}{int(with_intervals)}"), "true",
+                [*extra, *iv])
+    _assert_same_calls(port, ref, reference_runs[("host", with_intervals)])
+    assert port == reference_runs[("single", with_intervals)]
+
+
+def test_entry_matches_jax_entry():
+    import __graft_entry__
+    jfn, (jcounts, jref) = __graft_entry__.entry()
+    want = jfn(jcounts, jref)
+    fn, (counts, ref_code) = torch_entry.entry("cpu")
+    np.testing.assert_array_equal(counts.numpy(), jcounts)
+    np.testing.assert_array_equal(ref_code.numpy(), jref)
+    got = fn(counts, ref_code)
+    for k in ("total_coverage", "support", "num_no_calls", "variant_qscore",
+              "genotype", "gq", "filter_bits", "coverage_by_dir",
+              "support_by_dir"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    sb_w = np.asarray(want["sb_gatk"])
+    keep = np.isfinite(sb_w)
+    np.testing.assert_allclose(np.clip(got["sb_gatk"].numpy()[keep], -100, 0),
+                               np.clip(sb_w[keep], -100, 0), atol=1e-3)
+
+
+def test_dryrun_multichip_on_cpu(capsys):
+    torch_entry.dryrun_multichip(8, "cpu")
+    out = capsys.readouterr().out
+    assert "mesh={'dp': 2, 'sp': 4}" in out
+    assert "mesh_devices=8" in out and "equal=True" in out
+
+
+def test_compare_vcf_bodies_catches_differences():
+    line = ("chr1\t5\t.\tA\t.\t100\tPASS\tDP=50\tGT:GQ:AD:DP:VF:NL:SB\t"
+            "0/0:100:50:50:0.000:20:-10.0000")
+    assert torch_entry.compare_vcf_bodies([line], [line]) == 1
+    near = line.replace("-10.0000", "-10.0005")
+    assert torch_entry.compare_vcf_bodies([near], [line]) == 1
+    for bad in ([line.replace("-10.0000", "-10.0100")],
+                [line.replace("PASS", "q30")], [line, line], []):
+        with pytest.raises(AssertionError):
+            torch_entry.compare_vcf_bodies(bad, [line])
+
+
 def _port_sources():
     pkg = os.path.join(REPO, "pisces_tpu_torch")
     for root, _dirs, files in os.walk(pkg):
@@ -159,7 +249,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, pisces_tpu_torch.apps.pisces, "
-            "pisces_tpu_torch.ops.scoring_kernels; "
+            "pisces_tpu_torch.ops.scoring_kernels, "
+            "pisces_tpu_torch.parallel.sharding, pisces_tpu_torch.entry; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pisces_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -178,7 +269,7 @@ def test_main_without_cuda_raises_unless_cpu(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-MeshDevices", "2"], ["-MultiHost", "true"], ["-MultiProcess", "true"],
+    ["-MultiHost", "true"], ["-MultiProcess", "true"],
     ["-MaxThreads", "2"], ["-WindowSize", "5000"], ["-CallMNVs", "true"],
     ["-CoverageMethod", "exact"], ["-ploidy", "diploid"],
     ["-abfilter", "0.01"], ["-PriorsPath", "p.vcf"],
