@@ -12,8 +12,10 @@ its result lines:
   2. kernels — hold each kernel against its plain PyTorch version on the
      card on seeded inputs (integer outputs exact, floats within the stated
      tolerance): the tuple kernel and the counts kernel at L = 1, 7, 511,
-     513 and 200,000 and in the k ~ lambda band, the counts kernel also on
-     reference-N rows;
+     513, 6,119, 50,176, 200,000 and 200,192 (the tile edges, and sizes
+     ragged against a 32-locus tile), in the k ~ lambda band, on deep loci
+     (coverage up to 5,000) and at lambda up to 1e5; the counts kernel also
+     on reference-N rows;
   3. main path — write a synthetic messy workload (one 200 kb chromosome,
      1.5M 100 bp reads: 750x, an enrichment-panel depth) and run the
      port's CLI entry point on the card with -gVCF true: the launch counts
@@ -33,10 +35,18 @@ its result lines:
      handed it, with the phase-2 tolerance;
   5. entry points — entry() on the card against the plain version, and
      dryrun_multichip over every card;
-  6. report — the kernels line (JSON), the kernels' and the plain versions'
-     times, end-to-end rates, the mesh phase's wall and stages, peak device
-     memory, the card's name and power limit, and the contract line
-     {"ok": true, "device": {...}} last.
+  6. timing — each kernel on the main path's tuples, 200,000 random tuples
+     and each mesh's first tile: the wrapper's time (CUDA events over 50
+     back-to-back calls), the kernel's device-only time (torch.profiler's
+     kernel time over 50 wrapper calls; CUDA events around the bound C
+     launcher alone where the trace shows no kernel; the kernels line says
+     which, and how many of the launches the trace showed), the C
+     launcher's time alone, the plain version's, and the bound (the bytes
+     each call must move and the f32 operations its data needs, each series
+     counted to its exact exit);
+  7. report — the kernels line (JSON), end-to-end rates, the mesh phase's
+     wall and stages, peak device memory, the card's name and power limit,
+     and the contract line {"ok": true, "device": {...}} last.
 
 It needs the pisces_tpu_torch package beside it and a CUDA card; it fails
 without either.
@@ -60,7 +70,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CHROM_LEN = 200_000
 N_READS = 1_500_000
 SEED = 0
-SIZES = (1, 7, 511, 513, 200_000)
+# the tile edges, the main path's tuple count and mesh tiles (ragged
+# against a 32-locus tile), and a large random batch
+SIZES = (1, 7, 511, 513, 6_119, 50_176, 200_000, 200_192)
 TIMING_ITERS = 50
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
@@ -82,7 +94,9 @@ def _nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
+    """Mean time of fn() over `iters` back-to-back calls (CUDA events): the
+    device time, or the host's when fn() enqueues slower than the card
+    runs it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -94,6 +108,23 @@ def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, direct):
+    """(device-only ms, its source, profiler events seen of TIMING_ITERS):
+    the profiler's kernel time over fn()'s launches (a second trace where
+    the first missed launches, the fuller one kept); where no trace shows
+    the kernel, CUDA events around `direct` (the bound C launcher called
+    alone, outputs made once), which on a small launch also holds the
+    host's launch time."""
+    from pisces_tpu_torch.utils.metrics import kernel_device_ms
+    ms, seen = kernel_device_ms(fn, kernel, TIMING_ITERS)
+    if seen != TIMING_ITERS:
+        log(f"profiler: {seen} device events of {kernel} for "
+            f"{TIMING_ITERS} calls")
+    if ms is not None:
+        return ms, "profiler", seen
+    return cuda_ms(direct), "cuda_events_c_launcher", 0
 
 
 # ---------------------------------------------------------------------------
@@ -140,49 +171,94 @@ def _log_pmf_ops(k):
     return _lgamma_ops(k) + 5
 
 
-_UPPER = 4 * 64          # per term: add, multiply, divide, accumulate
-_LOWER = 5 * 64 + 1      # per term: subtract, max, multiply, divide, add
+def series_terms(k, lam, lower: bool):
+    """Terms each Poisson series of csrc/score_locus.cuh runs on these
+    inputs, in f32 as the kernel computes them: it stops at the first term
+    that is no larger than the one before and leaves the sum unchanged, or
+    after 64 (upper_series: term * lam / (k + j); lower_series:
+    term * max(k - (j - 1), 0) / max(lam, 1e-30))."""
+    import numpy as np
+    f32 = np.float32
+    k = np.asarray(k, f32)
+    lam = np.asarray(lam, f32)
+    if lower:
+        lam = np.maximum(lam, f32(1e-30))
+    term = np.ones_like(k)
+    acc = np.ones_like(k)
+    terms = np.full(k.shape, 64, np.int64)
+    live = np.ones(k.shape, bool)
+    with np.errstate(all="ignore"):
+        for j in range(1, 65):
+            if lower:
+                nxt = term * np.maximum(k - f32(j - 1), f32(0)) / lam
+            else:
+                nxt = term * lam / (k + f32(j))
+            s = acc + nxt
+            stop = live & (nxt <= term) & (s == acc)
+            terms[stop] = j
+            live &= ~stop
+            if not live.any():
+                break
+            term = np.where(live, nxt, term)
+            acc = np.where(live, s, acc)
+    return terms
+
+
+# per term: add, multiply, divide, accumulate, two compares (the exit)
+_UPPER_TERM = 6
+# per term: subtract, max, multiply, divide, accumulate, two compares
+_LOWER_TERM = 7
 
 
 def _tail_ops(k, lam):
+    """poisson_tail on the branch each locus takes, its series to the
+    exit."""
     import numpy as np
-    m = np.maximum(k - 1.0, 0.0)
-    up = _log_pmf_ops(k) + _UPPER + 6
-    low = 2 + _log_pmf_ops(m) + _LOWER + 6
+    m = np.maximum(k - np.float32(1), np.float32(0))
+    up = _log_pmf_ops(k) + _UPPER_TERM * series_terms(k, lam, False) + 6
+    low = 2 + _log_pmf_ops(m) + 1 + _LOWER_TERM * series_terms(m, lam, True) \
+        + 6
     return np.where(k <= 0, 1, np.where(k > lam, up, low))
 
 
 def _lower_cdf_ops(m, lam):
     import numpy as np
-    mt = np.trunc(np.maximum(m, 0.0))
-    return 3 + np.where(mt + 1.0 > lam, _log_pmf_ops(mt + 1.0) + _UPPER + 4,
-                        _log_pmf_ops(mt) + _LOWER + 3)
+    mt = np.trunc(np.maximum(m, np.float32(0)))
+    up = _log_pmf_ops(mt + 1) + _UPPER_TERM * series_terms(mt + 1, lam, False)
+    low = _log_pmf_ops(mt) + 1 + _LOWER_TERM * series_terms(mt, lam, True)
+    return 3 + np.where(mt + 1 > lam, up + 4, low + 3)
 
 
 def tuple_kernel_ops(tuples, out, params) -> float:
-    """f32 operations the kernel does on these tuples, following the
-    branches this data takes (each add, multiply, divide, compare and
+    """f32 operations the scoring math needs on these tuples, following the
+    branches this data takes, each series to its exact exit and the overall
+    tail once per locus (each add, multiply, divide, compare and
     transcendental counted as one: a lower bound on the work)."""
     import numpy as np
     from pisces_tpu_torch.domain.types import Genotype
     from pisces_tpu_torch.ops.scoring_kernels import noise_constants
-    t = tuples.cpu().numpy().astype(np.float64)
+    f32 = np.float32
+    t = tuples.cpu().numpy().astype(f32)
     nf, _ = noise_constants(params)
+    nf = f32(nf)
     sup = t[:, :3]
     cov = t[:, 3:]
-    total = cov.sum(1)
-    support = sup.sum(1)
+    total = cov[:, 0] + cov[:, 1] + cov[:, 2]
+    support = sup[:, 0] + sup[:, 1] + sup[:, 2]
     half_s = np.floor(t[:, 2] / 2)
     half_c = np.floor(t[:, 5] / 2)
-    ops = 4 + 1 + _tail_ops(support, nf * total) + 4 + 3 + 2
-    for s, c in ((support, total), (sup[:, 0] + half_s, cov[:, 0] + half_c),
+    # Q and the overall strand-bias side share one tail; a locus without
+    # support takes the closed form
+    ops = 4 + 1 + np.where(support <= 0, 3, _tail_ops(support, nf * total)
+                           + 3) + 4 + 3 + 2 + 2
+    for s, c in ((sup[:, 0] + half_s, cov[:, 0] + half_c),
                  (sup[:, 1] + half_s, cov[:, 1] + half_c)):
         ops = ops + 2 + np.where(s <= 0, 3, _tail_ops(s, c * nf) + 3)
     ops = ops + 5 + 3 + 6
-    freq = out["frequency"].cpu().numpy().astype(np.float64)
+    freq = out["frequency"].cpu().numpy().astype(f32)
     gt = out["genotype"].cpu().numpy()
-    non_allele = (1.0 - freq) * total
-    expected = params.target_lod * total
+    non_allele = (f32(1) - freq) * total
+    expected = f32(params.target_lod) * total
     gated = (gt == int(Genotype.HOMOZYGOUS_REF)) & (non_allele < expected)
     ops = ops + 3 + np.where(gated, 5 + _lower_cdf_ops(non_allele, expected)
                              + 4, 2) + 3 + 4
@@ -226,10 +302,31 @@ def random_tuples(n: int, seed: int = SEED):
     return np.concatenate([sup, cov], 1).astype(np.int32)
 
 
+def deep_tuples(n: int, seed: int = SEED):
+    """Deep reference loci: coverage up to 5,000, support the coverage less
+    a few non-reference reads (lambda = 0.01 x coverage, the upper series'
+    short exits)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cov = rng.integers(0, 1_667, size=(n, 3))
+    sup = np.maximum(cov - rng.integers(0, 4, size=(n, 3)), 0)
+    return np.concatenate([sup, cov], 1).astype(np.int32)
+
+
+def large_lambda_tuples(n: int, seed: int = SEED):
+    """Coverage up to 10 million (lambda up to 1e5), support 0-3% of it:
+    both series branches near k ~ lambda, where they run longest."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cov = rng.integers(0, 3_333_333, size=(n, 3))
+    sup = (cov * 0.03 * rng.random((n, 3))).astype(np.int64)
+    return np.concatenate([sup, cov], 1).astype(np.int32)
+
+
 def check_tuple_kernel(device):
-    """Phase 2: the tuple kernel against its plain version at the edge
-    sizes and in the k ~ lambda band. Returns the largest float
-    difference."""
+    """Phase 2: the tuple kernel against its plain version at the edge and
+    ragged sizes, in the k ~ lambda band, on deep loci and at large lambda.
+    Returns the largest float difference."""
     import numpy as np
     import torch
     from pisces_tpu_torch.ops import scoring_kernels as K
@@ -241,6 +338,9 @@ def check_tuple_kernel(device):
     band[:, 3] = band[:, 0]
     band[:, 4] = rng.integers(0, 500, 1024)
     cases.append(("k~lambda band", band))
+    cases.append(("deep (coverage up to 5,000)", deep_tuples(4099, SEED + 3)))
+    cases.append(("large lambda (up to 1e5)",
+                  large_lambda_tuples(4099, SEED + 4)))
     worst = 0.0
     for name, tup in cases:
         t = torch.from_numpy(tup.astype(np.int32)).to(device)
@@ -265,10 +365,25 @@ def random_loci(n: int, seed: int = SEED, codes: int = 4):
     return counts, rng.integers(0, codes, n).astype(np.int32)
 
 
+def tuple_loci(tuples, seed: int = SEED):
+    """Counts whose derived tuples are `tuples` (int [n, 6]): the support
+    on the reference row, the rest of the coverage on another base."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = len(tuples)
+    ref = rng.integers(0, 4, n)
+    other = (ref + 1 + rng.integers(0, 3, n)) % 4
+    counts = np.zeros((n, 6, 3), np.int64)
+    rows = np.arange(n)
+    counts[rows, ref, :] = tuples[:, :3]
+    counts[rows, other, :] = tuples[:, 3:] - tuples[:, :3]
+    return counts.astype(np.int32), ref.astype(np.int32)
+
+
 def check_loci_kernel(device):
-    """Phase 2: the counts kernel against its plain version at the edge
-    sizes, in the k ~ lambda band and on reference-N rows. Returns the
-    largest float difference."""
+    """Phase 2: the counts kernel against its plain version at the edge and
+    ragged sizes, in the k ~ lambda band, on reference-N rows, on deep loci
+    and at large lambda. Returns the largest float difference."""
     import numpy as np
     import torch
     from pisces_tpu_torch.ops import scoring_kernels as K
@@ -282,6 +397,10 @@ def check_loci_kernel(device):
     counts, ref = random_loci(3000, SEED + 2, codes=6)
     ref[::3] = 4                                # reference N: N-row support
     cases.append(("reference-N rows", counts, ref))
+    cases.append(("deep (coverage up to 5,000)",
+                  *tuple_loci(deep_tuples(4099, SEED + 5), SEED + 5)))
+    cases.append(("large lambda (up to 1e5)",
+                  *tuple_loci(large_lambda_tuples(4099, SEED + 6), SEED + 6)))
     worst = 0.0
     for name, counts, ref in cases:
         c = torch.from_numpy(counts).to(device)
@@ -496,6 +615,74 @@ def run_entry_points(device) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# Timing
+# ---------------------------------------------------------------------------
+
+TUPLE_BYTES = 6 * 4 + 7 * 4 + 2 * 4    # tuple in, seven int32 and two f32 out
+
+
+def tuple_case(label, tuples, params):
+    """A timing case of the tuple kernel on `tuples`."""
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    out = K.score_reference_tuples(tuples, params)
+    return {"kernel": "score_tuples", "label": label, "n": tuples.shape[0],
+            "inputs": (tuples, None), "params": params,
+            "wrapper": lambda: K.score_reference_tuples(tuples, params),
+            "plain": lambda: K.score_reference_tuples_plain(tuples, params),
+            "ops": tuple_kernel_ops(tuples, out, params),
+            "bytes": tuples.shape[0] * TUPLE_BYTES}
+
+
+def loci_case(label, counts, ref_code, params):
+    """A timing case of the counts kernel on (counts, ref_code)."""
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    out = K.score_reference_loci(counts, ref_code, params)
+    return {"kernel": "score_loci", "label": label, "n": counts.shape[0],
+            "inputs": (counts, ref_code), "params": params,
+            "wrapper": lambda: K.score_reference_loci(counts, ref_code,
+                                                      params),
+            "plain": lambda: K.score_reference_loci_plain(counts, ref_code,
+                                                          params),
+            "ops": loci_kernel_ops(out, params),
+            "bytes": counts.shape[0] * LOCI_BYTES}
+
+
+def direct(lib, case):
+    """(fn, out): fn() launches the case's kernel of `lib` through its C
+    launcher alone, into `out`, made once."""
+    import torch
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    out = torch.empty((K.OUT_ROWS[case["kernel"]], case["n"]),
+                      dtype=torch.int32, device=case["inputs"][0].device)
+    return lib.bind(case["kernel"], case["inputs"], out, case["params"]), out
+
+
+def time_kernel(case, lib):
+    """The wrapper's time (CUDA events over TIMING_ITERS back-to-back
+    calls), the kernel's device-only time, the C launcher's time alone
+    (events), the plain version's (5 calls) and the bound, logged."""
+    fn, _ = direct(lib, case)
+    kernel = case["kernel"] + "_kernel"
+    r = {"ms": cuda_ms(case["wrapper"]),
+         "launcher_ms": cuda_ms(fn),
+         "plain_ms": cuda_ms(case["plain"], iters=5)}
+    r["device_ms"], r["device_ms_source"], r["device_events"] = device_ms(
+        case["wrapper"], kernel, fn)
+    r["bound_ms"], r["bound_by"] = bound(case["ops"], case["bytes"])
+    n = case["n"]
+    log(f"{case['kernel']} at {case['label']}: wrapper {r['ms']:.4f} ms, "
+        f"device {r['device_ms']:.4f} ms ({r['device_ms_source']}, "
+        f"{r['device_events']} of {TIMING_ITERS} launches traced), "
+        f"C launcher alone {r['launcher_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms; bound "
+        f"{r['bound_ms']:.6f} ms ({r['bound_by']}: "
+        f"{case['ops'] / n:,.0f} f32 operations and {case['bytes'] // n} "
+        f"bytes per locus), device time {r['bound_ms'] / r['device_ms']:.1%}"
+        f" of the bound's; {n / r['device_ms'] * 1e3:,.0f} loci/s")
+    return r
+
+
 def main_smoke() -> int:
     if not os.path.isdir(os.path.join(REPO, "pisces_tpu_torch")):
         raise SystemExit("chip_smoke: FAIL: no pisces_tpu_torch package "
@@ -513,8 +700,9 @@ def main_smoke() -> int:
 
     # phase 1: build
     lib = K.build_kernels()
-    log(f"built {', '.join(os.path.relpath(p, REPO) for p in lib.paths.values())}"
-        f" in {lib.build_seconds:.1f} s")
+    log("built " + ", ".join(os.path.relpath(p, REPO)
+                             for p in lib.paths.values())
+        + f" in {lib.build_seconds:.1f} s")
     for line in lib.build_log.splitlines():
         if "ptxas" in line or line.endswith(":"):
             log(line.strip())
@@ -539,26 +727,15 @@ def main_smoke() -> int:
     err["score_loci"] = max(err["score_loci"], run_entry_points(device))
 
     # time each kernel and its plain version on the main paths' own inputs
+    # and at 200,000 random tuples
     tuples, params = max(seen, key=lambda s: s[0].shape[0])
     out = K.score_reference_tuples(tuples, params)
-    ref = K.score_reference_tuples_plain(tuples, params)
-    err["score_tuples"] = max(err["score_tuples"],
-                              compare_scores("score_tuples", out, ref))
-    ms = cuda_ms(lambda: K.score_reference_tuples(tuples, params))
-    plain_ms = cuda_ms(lambda: K.score_reference_tuples_plain(tuples, params),
-                       iters=5)
-    u = tuples.shape[0]
-    t_ops = tuple_kernel_ops(tuples, out, params)
-    t_bound, t_by = bound(t_ops, u * (6 * 4 + 7 * 4 + 2 * 4))
+    err["score_tuples"] = max(err["score_tuples"], compare_scores(
+        "score_tuples", out, K.score_reference_tuples_plain(tuples, params)))
     big = torch.from_numpy(random_tuples(200_000)).to(device)
-    ms_200k = cuda_ms(lambda: K.score_reference_tuples(big, ScoringParams()))
-    log(f"score_tuples at the main path's {u:,} unique tuples: "
-        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {t_bound:.6f} ms, "
-        f"{t_by}: {t_ops / u:,.0f} f32 operations and 60 bytes per tuple); "
-        f"at 200,000 tuples {ms_200k:.4f} ms = "
-        f"{200_000 / ms_200k * 1e3:,.0f} loci/s")
-
-    loci = {}
+    cases = [tuple_case(f"the main path's {tuples.shape[0]:,} tuples",
+                        tuples, params),
+             tuple_case("200,000 random tuples", big, ScoringParams())]
     for n in MESH_SHARDS:
         counts, ref_code, lparams = tiles[n][0]
         lout = K.score_reference_loci(counts, ref_code, lparams)
@@ -568,18 +745,9 @@ def main_smoke() -> int:
         log(f"score_loci on the {n}-shard mesh's first tile: matches its "
             "plain version (integers and by-direction tuples exact, sb_gatk "
             "within 1e-3 dB above -40 dB and 5% below)")
-        lms = cuda_ms(lambda: K.score_reference_loci(counts, ref_code,
-                                                     lparams))
-        lplain = cuda_ms(lambda: K.score_reference_loci_plain(
-            counts, ref_code, lparams), iters=5)
-        l_ops = loci_kernel_ops(lout, lparams)
-        lbound, lby = bound(l_ops, counts.shape[0] * LOCI_BYTES)
-        loci[n] = (lms, lplain, lbound, lby)
-        log(f"score_loci at the {n}-shard mesh's {counts.shape[0]:,} loci "
-            f"per launch: {lms:.4f} ms (plain {lplain:.3f} ms, bound "
-            f"{lbound:.6f} ms, {lby}: {l_ops / counts.shape[0]:,.0f} f32 "
-            f"operations and {LOCI_BYTES} bytes per locus) = "
-            f"{counts.shape[0] / lms * 1e3:,.0f} loci/s")
+        cases.append(loci_case(f"the {n}-shard mesh's {counts.shape[0]:,} "
+                               "loci per launch", counts, ref_code, lparams))
+    timed = [time_kernel(c, lib) for c in cases]
 
     reads_s = N_READS / e2e["wall_s"]
     lines_s = e2e["lines"] / e2e["wall_s"]
@@ -595,9 +763,9 @@ def main_smoke() -> int:
             f"; {r['stats']}")
     log(f"peak device memory (main path): {e2e['peak_bytes'] / 2**20:.1f} MiB")
 
-    # the counts kernel's line carries the 1-shard mesh run: its launches
-    # and the time and bound of the tile it launched on
-    lms, lplain, lbound, lby = loci[MESH_SHARDS[0]]
+    # the tuple kernel's line carries the main path's tuples, the counts
+    # kernel's the 1-shard mesh run: its launches and the tile it launched on
+    t, lt = timed[0], timed[2]
     log("score_loci launches per mesh run: " + ", ".join(
         f"{n} shard(s) {mesh_launches[n]}" for n in MESH_SHARDS))
     kernels = [{
@@ -607,10 +775,14 @@ def main_smoke() -> int:
         "replaces": "pisces_tpu/ops/pallas_scoring.py:245",
         "launches": launches["score_tuples"],
         "max_abs_err": err["score_tuples"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": t_bound,
-        "bound_by": t_by,
+        "ms": t["ms"],
+        "device_ms": t["device_ms"],
+        "device_ms_source": t["device_ms_source"],
+        "device_ms_events": t["device_events"],
+        "device_ms_calls": TIMING_ITERS,
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
     }, {
         "name": "score_loci",
@@ -619,10 +791,14 @@ def main_smoke() -> int:
         "replaces": "pisces_tpu/ops/pallas_scoring.py:220",
         "launches": mesh_launches[MESH_SHARDS[0]],
         "max_abs_err": err["score_loci"],
-        "ms": lms,
-        "plain_ms": lplain,
-        "bound_ms": lbound,
-        "bound_by": lby,
+        "ms": lt["ms"],
+        "device_ms": lt["device_ms"],
+        "device_ms_source": lt["device_ms_source"],
+        "device_ms_events": lt["device_events"],
+        "device_ms_calls": TIMING_ITERS,
+        "plain_ms": lt["plain_ms"],
+        "bound_ms": lt["bound_ms"],
+        "bound_by": lt["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

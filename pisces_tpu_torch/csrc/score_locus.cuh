@@ -1,18 +1,25 @@
-// The reference-locus scoring math shared by the two Hopper (sm_90a)
-// scoring kernels: score_tuples.cu (the port of the Pallas `_tuples_kernel`)
-// and score_loci.cu (the port of `_scoring_kernel`). Both Pallas kernels
-// run the same body, `_score_rows` (pisces_tpu/ops/pallas_scoring.py:130-217),
-// with its f32 helpers (:49-127); `score_locus` below is that body for one
-// locus, and each kernel is only the prologue that feeds it.
+// The reference-locus scoring math and tile shape shared by the two Hopper
+// (sm_90a) scoring kernels: score_tuples.cu (the port of the Pallas
+// `_tuples_kernel`) and score_loci.cu (the port of `_scoring_kernel`). Both
+// Pallas kernels run the same body, `_score_rows`
+// (pisces_tpu/ops/pallas_scoring.py:130-217), with its f32 helpers
+// (:49-127); run_role and write_group below are that body, split into the
+// four Poisson tails it needs and the outputs it writes, and each kernel is
+// only the prologue that stages its tile and feeds them.
 //
 // The math is the Pallas helpers' f32 arithmetic step for step, built
 // without fast math and without FMA contraction (-fmad=false), so the plain
 // PyTorch version (ops/scoring_kernels.score_reference_tuples_plain) rounds
 // the same way: jnp.round's half-to-even is rintf, the integer halving of
 // stitched counts is integer division, and the no-bias sentinel is -1e38 as
-// in the Pallas kernel. Each Poisson tail evaluates only the series branch
-// it selects (the Pallas kernel computes both and selects per lane, which a
-// SIMD TPU core must do anyway).
+// in the Pallas kernel. Three departures change the work, not one output
+// bit: each Poisson tail evaluates only the series branch it selects (the
+// Pallas kernel computes both and selects per lane, which a SIMD TPU core
+// must do anyway); each series stops at its exact exit instead of running
+// all 64 terms; and the overall tail, which `_score_rows` computes twice (Q
+// and the overall strand-bias side), is computed once. No series is summed
+// in parallel: a tree sum rounds differently and moves the integer Q at
+// rounding boundaries.
 
 #pragma once
 
@@ -73,23 +80,38 @@ __device__ inline float log_pmf(float k, float lam) {
   return k * logf(fmaxf(lam, 1e-30f)) - lam - lgamma1p(k);
 }
 
+// The two series below keep the 64-term plain series' order of operations
+// per term and stop at the exact exit: the first term that is no larger
+// than the one before and leaves the sum unchanged. On the branch each
+// serves the terms do not grow (each is the last times a ratio below one),
+// and f32 rounding is monotone, so once acc + term == acc every later term
+// leaves acc unchanged too: the sum is bit-equal to the 64-term one. A
+// series that never exits (a NaN, a growing term) still runs all 64.
+
 // sum_{j>=0} prod_{i=1..j} lam/(k+i) (_upper_series).
 __device__ inline float upper_series(float k, float lam) {
   float term = 1.0f, acc = 1.0f;
   for (int j = 1; j <= kSeries; ++j) {
-    term = term * lam / (k + (float)j);
-    acc = acc + term;
+    const float next = term * lam / (k + (float)j);
+    const float sum = acc + next;
+    if (next <= term && sum == acc) break;
+    term = next;
+    acc = sum;
   }
   return acc;
 }
 
-// sum_{j>=0} prod_{i=0..j-1} (m-i)/lam (_lower_series).
+// sum_{j>=0} prod_{i=0..j-1} (m-i)/lam (_lower_series); its terms are
+// exactly 0 from j = m + 2 on.
 __device__ inline float lower_series(float m, float lam) {
   const float safe_lam = fmaxf(lam, 1e-30f);
   float term = 1.0f, acc = 1.0f;
   for (int j = 1; j <= kSeries; ++j) {
-    term = term * fmaxf(m - (float)(j - 1), 0.0f) / safe_lam;
-    acc = acc + term;
+    const float next = term * fmaxf(m - (float)(j - 1), 0.0f) / safe_lam;
+    const float sum = acc + next;
+    if (next <= term && sum == acc) break;
+    term = next;
+    acc = sum;
   }
   return acc;
 }
@@ -129,8 +151,8 @@ __device__ inline float lower_cdf(float m, float lam) {
   return fminf(low, 1.0f);
 }
 
-// Extended-model PopulateStats (_sb_stats): chance of a false positive and
-// chance that the variant frequency is above zero.
+// Extended-model PopulateStats (_sb_stats) of one strand side: chance of a
+// false positive and chance that the variant frequency is above zero.
 __device__ inline void sb_stats(float support, float coverage,
                                 const ScoreParams& p, float* cfp,
                                 float* cvfgz) {
@@ -146,93 +168,274 @@ __device__ inline void sb_stats(float support, float coverage,
   *cfp = fmaxf(tail, 0.0f);
 }
 
-struct ScoreOut {
-  int32_t total, support, q, gt, gq, filter_bits;
-  float freq, sb_gatk;
+// ---------------------------------------------------------------------------
+// The tile: the shape both kernels share
+// ---------------------------------------------------------------------------
+//
+// A block of kThreads threads scores one tile of loci. Each kernel's
+// prologue stages its tile's inputs into shared memory with coalesced
+// 16-byte cp.async copies and fills the Tile's (support, coverage) by
+// direction; score_tile then runs the four roles below and the epilogue. The tile
+// comes in two shapes, chosen per launch by split_roles:
+//
+// - split (kSplit): 32 loci, and warp w runs role w for all of them, lane j
+//   on locus j: every lane of a warp runs the same function, so a warp
+//   diverges only where its loci take different series branches, and a
+//   block waits for its longest tail, not for four in a row. Then warp w
+//   writes epilogue group w's rows, each store a contiguous run of the
+//   tile's columns. It gives four times the warps of one thread per locus,
+//   which is what a small grid needs (the main path's few thousand tuples).
+// - one thread per locus: 128 loci, each thread runs every role for its own
+//   locus and each warp every group over its 32. On a large grid it keeps
+//   every warp busy, where in the split the warps whose tails are short
+//   wait at the barrier for the longest.
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRoles = 4;  // = the block's warps, one role each when split
+
+template <bool kSplit>
+__host__ __device__ constexpr int tile_loci() {
+  return kSplit ? 32 : kThreads;
+}
+
+// the grid of a launch over n loci in tiles of one shape
+template <bool kSplit>
+unsigned int tile_blocks(int64_t n) {
+  return (unsigned int)((n + tile_loci<kSplit>() - 1) / tile_loci<kSplit>());
+}
+
+}  // namespace
+
+// One tile's loci in shared memory: each kernel's prologue writes the
+// inputs, each role its results, and the epilogue reads both.
+template <bool kSplit>
+struct Tile {
+  static constexpr int kLoci = tile_loci<kSplit>();
+  float sup[3][kLoci];    // support F, R, S
+  float cov[3][kLoci];    // coverage F, R, S
+  int32_t sup_s[kLoci];   // stitched support and coverage as integers,
+  int32_t cov_s[kLoci];   // halved by integer division for the sides
+  int32_t q[kLoci];                                  // role 0
+  float ov_cfp[kLoci], ov_cvfgz[kLoci];              // role 0
+  float side_cfp[2][kLoci], side_cvfgz[2][kLoci];    // roles 1, 2
+  float gq_cdf[kLoci];                               // role 3
 };
 
-// `_score_rows` for one locus: sup/cov are the (F, R, S) support and
-// coverage as f32, sup_s/cov_s the stitched counts as integers (halved by
-// integer division for the strand-bias sides).
-__device__ inline ScoreOut score_locus(const float sup[3], const float cov[3],
-                                       int32_t sup_s, int32_t cov_s,
-                                       const ScoreParams& p) {
-  ScoreOut o;
-  const float total = cov[0] + cov[1] + cov[2];
-  const float support = sup[0] + sup[1] + sup[2];
-
-  // Poisson q-score: p = P(X >= support), lam = err * cov
-  const float lam = p.noise_freq * total;
-  float tail, log10_p;
-  poisson_tail(support, lam, &tail, &log10_p);
-  const float q = fminf(fmaxf(-10.0f * log10_p, 0.0f), p.max_variant_qscore);
-  int32_t qi = (int32_t)rintf(q);
-  if (support <= 0.0f || total <= 0.0f) qi = 0;
-
-  const float freq =
-      total <= 0.0f ? 0.0f : fminf(support / fmaxf(total, 1.0f), 1.0f);
-
-  // strand bias (Extended model); stitched counts split by integer halving
-  const float half_s = (float)(sup_s / 2);
-  const float half_c = (float)(cov_s / 2);
-  float ov_cfp, ov_cvfgz, fw_cfp, fw_cvfgz, rv_cfp, rv_cvfgz;
-  sb_stats(support, total, p, &ov_cfp, &ov_cvfgz);
-  sb_stats(sup[0] + half_s, cov[0] + half_c, p, &fw_cfp, &fw_cvfgz);
-  sb_stats(sup[1] + half_s, cov[1] + half_c, p, &rv_cfp, &rv_cvfgz);
-  float score;
-  if (ov_cvfgz == 0.0f) {
-    score = 1.0f;
-  } else {
-    const float fwd = fw_cvfgz * rv_cfp / ov_cvfgz;
-    const float rev = rv_cvfgz * fw_cfp / ov_cvfgz;
-    score = fmaxf(fwd, rev);
+// Copy `count` int32 from global `src` to shared `dst` (16-byte aligned)
+// with the whole block, coalesced: 16-byte asynchronous copies (cp.async,
+// past L1 and the registers) where src is 16-byte aligned, then one int32 a
+// thread for the rest. A kernel's stage() calls are all in flight at once;
+// stage_wait() before the block's barrier waits for this thread's. (On an
+// H100, cp.async measured up to 5% faster than plain 16-byte loads and no
+// slower on any aligned tile; one cp.async.bulk per array onto an mbarrier
+// measured within about 3% of it: PERF.md, from
+// python -m pisces_tpu_torch.kernel_ab.)
+__device__ inline void stage(int32_t* dst, const int32_t* __restrict__ src,
+                             int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int quads = count >> 2;
+    const int4* s = reinterpret_cast<const int4*>(src);
+    int4* d = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+      const uint32_t to = (uint32_t)__cvta_generic_to_shared(d + i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                   "l"(s + i)
+                   : "memory");
+    }
+    done = quads << 2;
   }
-  const bool cov_both = (cov[0] + half_c > 0.0f) && (cov[1] + half_c > 0.0f);
-  if (!cov_both) score = 0.0f;
-  float gatk =
-      score > 0.0f ? 10.0f * log10f(fmaxf(score, 1e-38f)) : -1e38f;
-  if (!(support > 0.0f)) gatk = 0.0f;
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = __ldg(src + i);
+}
 
-  // somatic genotype of a reference locus
+__device__ inline void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <bool kSplit>
+__device__ inline float total_of(const Tile<kSplit>& t, int j) {
+  return t.cov[0][j] + t.cov[1][j] + t.cov[2][j];
+}
+
+template <bool kSplit>
+__device__ inline float support_of(const Tile<kSplit>& t, int j) {
+  return t.sup[0][j] + t.sup[1][j] + t.sup[2][j];
+}
+
+__device__ inline float frequency(float support, float total) {
+  return total <= 0.0f ? 0.0f : fminf(support / fmaxf(total, 1.0f), 1.0f);
+}
+
+// somatic genotype of a reference locus
+__device__ inline int32_t genotype(float freq, float total,
+                                   const ScoreParams& p) {
   int32_t gt = p.gt_hom_ref;
   if (freq < p.min_frequency_filter) gt = p.gt_ref_like_nocall;
   if (freq >= p.min_frequency_filter &&
       (1.0f - freq) > p.min_frequency_filter)
     gt = p.gt_ref_and_nocall;
   if (total < p.min_depth) gt = p.gt_ref_like_nocall;
+  return gt;
+}
 
-  // GQ (SomaticGenotypeQualityCalculator, hom branch)
-  const float non_allele = (1.0f - freq) * total;
-  const float expected = p.target_lod * total;
-  float raw;
-  if (gt == p.gt_hom_ref) {
-    if (non_allele >= expected) {
-      raw = p.min_gq;
+// Role r of `_score_rows` for locus j, each one Poisson tail:
+//   0  the overall tail P(X >= support), lam = noise_freq * total, once for
+//      both the Poisson Q and the overall strand-bias side (the Pallas
+//      kernel and the plain version compute it twice, the second time with
+//      lam = total * noise_freq: IEEE multiplication commutes, so it is the
+//      same f32 call);
+//   1, 2  the forward and the reverse strand-bias side;
+//   3  the GQ Poisson gate's lower CDF, where the genotype is hom-ref and
+//      non_allele < expected (recomputing both costs a few operations).
+template <bool kSplit>
+__device__ inline void run_role(int role, int j, Tile<kSplit>& t,
+                                const ScoreParams& p) {
+  const float total = total_of(t, j);
+  const float support = support_of(t, j);
+  if (role == 0) {
+    int32_t qi = 0;
+    if (support <= 0.0f) {
+      const float z = expf(total * p.log1m_noise);
+      t.ov_cvfgz[j] = z;
+      t.ov_cfp[j] = 1.0f - z;
     } else {
-      const float p1 = powf(10.0f, -(float)qi / 10.0f);
-      const float p2 = lower_cdf(non_allele, expected);
-      raw = -10.0f * log10f(fmaxf(p1 + p2, 1e-38f));
+      float tail, log10_p;
+      poisson_tail(support, p.noise_freq * total, &tail, &log10_p);
+      const float q =
+          fminf(fmaxf(-10.0f * log10_p, 0.0f), p.max_variant_qscore);
+      if (total > 0.0f) qi = (int32_t)rintf(q);
+      t.ov_cvfgz[j] = fmaxf(0.0f, 1.0f - tail);
+      t.ov_cfp[j] = fmaxf(tail, 0.0f);
     }
+    t.q[j] = qi;
+  } else if (role < 3) {
+    // stitched counts split by integer halving
+    const int d = role - 1;
+    sb_stats(t.sup[d][j] + (float)(t.sup_s[j] / 2),
+             t.cov[d][j] + (float)(t.cov_s[j] / 2), p, &t.side_cfp[d][j],
+             &t.side_cvfgz[d][j]);
   } else {
-    raw = (float)qi;
+    const float freq = frequency(support, total);
+    const float non_allele = (1.0f - freq) * total;
+    const float expected = p.target_lod * total;
+    if (genotype(freq, total, p) == p.gt_hom_ref && non_allele < expected)
+      t.gq_cdf[j] = lower_cdf(non_allele, expected);
   }
-  int32_t gq = (int32_t)rintf(fminf(fmaxf(raw, p.min_gq), p.max_gq));
-  if (total <= 0.0f || gt == p.gt_ref_like_nocall) gq = p.min_gq_int;
+}
 
-  int32_t fb = 0;
-  if (total < p.low_depth_filter) fb |= 1 << p.bit_low_depth;
-  if (qi < p.variant_qscore_filter && total != 0.0f)
-    fb |= 1 << p.bit_low_variant_qscore;
+// Epilogue group g of locus j, written to column i of out_i [7, n] and
+// out_f [2, n]:
+//   0  Poisson Q, genotype, GQ (SomaticGenotypeQualityCalculator, hom
+//      branch): out_i rows 2, 3, 4;
+//   1  Extended-model strand bias (GATK dB): out_f row 1;
+//   2  total coverage, support, filter bits: out_i rows 0, 1, 5; frequency:
+//      out_f row 0.
+// Group 3 (the N-call count, row 6, and the counts kernel's by-direction
+// rows) is each kernel's own.
+template <bool kSplit>
+__device__ inline void write_group(int g, int j, const Tile<kSplit>& t,
+                                   const ScoreParams& p, int64_t i,
+                                   int64_t n, int32_t* __restrict__ out_i,
+                                   float* __restrict__ out_f) {
+  const float total = total_of(t, j);
+  const float support = support_of(t, j);
+  const int32_t qi = t.q[j];
+  if (g == 0) {
+    const float freq = frequency(support, total);
+    const int32_t gt = genotype(freq, total, p);
+    const float non_allele = (1.0f - freq) * total;
+    const float expected = p.target_lod * total;
+    float raw;
+    if (gt == p.gt_hom_ref) {
+      if (non_allele >= expected) {
+        raw = p.min_gq;
+      } else {
+        const float p1 = powf(10.0f, -(float)qi / 10.0f);
+        raw = -10.0f * log10f(fmaxf(p1 + t.gq_cdf[j], 1e-38f));
+      }
+    } else {
+      raw = (float)qi;
+    }
+    int32_t gq = (int32_t)rintf(fminf(fmaxf(raw, p.min_gq), p.max_gq));
+    if (total <= 0.0f || gt == p.gt_ref_like_nocall) gq = p.min_gq_int;
+    out_i[2 * n + i] = qi;
+    out_i[3 * n + i] = gt;
+    out_i[4 * n + i] = gq;
+  } else if (g == 1) {
+    const float ov = t.ov_cvfgz[j];
+    float score;
+    if (ov == 0.0f) {
+      score = 1.0f;
+    } else {
+      const float fwd = t.side_cvfgz[0][j] * t.side_cfp[1][j] / ov;
+      const float rev = t.side_cvfgz[1][j] * t.side_cfp[0][j] / ov;
+      score = fmaxf(fwd, rev);
+    }
+    const float half_c = (float)(t.cov_s[j] / 2);
+    if (!(t.cov[0][j] + half_c > 0.0f && t.cov[1][j] + half_c > 0.0f))
+      score = 0.0f;
+    float gatk =
+        score > 0.0f ? 10.0f * log10f(fmaxf(score, 1e-38f)) : -1e38f;
+    if (!(support > 0.0f)) gatk = 0.0f;
+    out_f[n + i] = gatk;
+  } else {
+    int32_t fb = 0;
+    if (total < p.low_depth_filter) fb |= 1 << p.bit_low_depth;
+    if (qi < p.variant_qscore_filter && total != 0.0f)
+      fb |= 1 << p.bit_low_variant_qscore;
+    out_i[0 * n + i] = (int32_t)total;
+    out_i[1 * n + i] = (int32_t)support;
+    out_i[5 * n + i] = fb;
+    out_f[i] = frequency(support, total);
+  }
+}
 
-  o.total = (int32_t)total;
-  o.support = (int32_t)support;
-  o.q = qi;
-  o.gt = gt;
-  o.gq = gq;
-  o.filter_bits = fb;
-  o.freq = freq;
-  o.sb_gatk = gatk;
-  return o;
+// The roles and the epilogue of the tile of `count` loci starting at locus
+// `base`, once the kernel's prologue has filled t and synchronised.
+// own(lo, cnt, lane) writes the kernel's own group for the warp's loci
+// lo .. lo + cnt - 1.
+template <bool kSplit, typename Own>
+__device__ inline void score_tile(Tile<kSplit>& t, int count, int64_t base,
+                                  int64_t n, int32_t* __restrict__ out_i,
+                                  float* __restrict__ out_f,
+                                  const ScoreParams& p, Own own) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (kSplit) {
+    if (lane < count) run_role(warp, lane, t, p);
+  } else if ((int)threadIdx.x < count) {
+    for (int r = 0; r < kRoles; ++r) run_role(r, threadIdx.x, t, p);
+  }
+  __syncthreads();
+  const int lo = kSplit ? 0 : warp * 32;
+  const int cnt = min(32, count - lo);
+  for (int g = kSplit ? warp : 0; g < (kSplit ? warp + 1 : kRoles); ++g) {
+    if (g == kRoles - 1)
+      own(lo, cnt, lane);
+    else if (lane < cnt)
+      write_group(g, lo + lane, t, p, base + lo + lane, n, out_i, out_f);
+  }
+}
+
+// Whether a launch over n loci splits the roles over warps: while the
+// one-thread-per-locus grid (n / 128 blocks) gives each SM fewer than four
+// blocks, 16 warps, four per scheduler, too few to hide each thread's chain
+// of dependent divides and transcendentals, the split's four times as many
+// warps, each waiting on one tail, finish sooner; from there on, one thread
+// per locus keeps every warp busy where the split's short roles wait at
+// the barrier for the longest (PERF.md gives the crossover on an H100).
+// Each device's SM count is read once and kept (a race only writes the
+// same value twice).
+inline bool split_roles(int64_t n, int device) {
+  static int sms[64] = {};
+  int count = device >= 0 && device < 64 ? sms[device] : 0;
+  if (count == 0) {
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (device >= 0 && device < 64) sms[device] = count;
+  }
+  return (n + kThreads - 1) / kThreads < 4 * (int64_t)count;
 }
 
 // Launch on `device` (the CUDA ordinal of the caller's tensors). The kernel

@@ -12,42 +12,61 @@
 //                             N-call count
 //        out_f  [2, n] f32    rows: frequency, Extended-model SB (GATK dB)
 //
-// What bounds it: arithmetic. Each locus runs four Poisson tails (Q and the
-// three strand-bias sides) plus the GQ lower CDF, each a fixed 64-term
-// series with one f32 divide per term, and about ten lgamma shift steps
-// with a logf each, against 28 bytes read and 36 bytes written. On an H100
-// that is hundreds of divide and transcendental instructions per 64 bytes
-// of memory traffic, so the card's memory rate is never the limit.
+// What bounds it: counted at one per f32 operation, bytes: 28 read and 36
+// written per tuple, against a few hundred operations once each series
+// stops at its exact exit (the main path's deep loci exit the upper series
+// after about 4 terms). In practice each tail is a dependent chain of IEEE
+// divides, logs and exps, and the main path hands the kernel only a few
+// thousand tuples, so latency bounds it: the chain's, and the launch's.
 //
-// What the design does about it: one thread per locus, no shared memory,
-// no synchronisation, so every SM keeps as many warps in flight as its
-// registers allow and the divide/SFU pipes stay busy.
+// What the design does about it: the exact exit cuts each chain to the
+// terms that change the sum, and the overall tail runs once. Each block
+// scores a tile of loci whose tuples come in as 16-byte cp.async copies
+// and whose output rows leave as contiguous runs. While the grid is small,
+// as at the main path's 6,119 tuples, the tile is 32 loci and the four tails of a
+// locus run in four warps side by side, one role per warp (192 blocks of
+// four busy warps for 132 SMs, each waiting on one tail, not four in a
+// row); on a large grid one thread per locus keeps every warp busy
+// (score_locus.cuh, split_roles).
 //
 // The launcher allocates nothing, runs on the caller's stream and device,
 // and returns the CUDA error so the wrapper can raise on a refused launch.
 
 #include "score_locus.cuh"
 
-__global__ void score_tuples_kernel(const int32_t* __restrict__ tuples,
-                                    const int32_t* __restrict__ num_nc,
-                                    int64_t n, int32_t* __restrict__ out_i,
-                                    float* __restrict__ out_f,
-                                    ScoreParams p) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged edge: no padding to a tile
-  const int32_t* t = tuples + i * 6;
-  const float sup[3] = {(float)t[0], (float)t[1], (float)t[2]};
-  const float cov[3] = {(float)t[3], (float)t[4], (float)t[5]};
-  const ScoreOut o = score_locus(sup, cov, t[2], t[5], p);
-  out_i[0 * n + i] = o.total;
-  out_i[1 * n + i] = o.support;
-  out_i[2 * n + i] = o.q;
-  out_i[3 * n + i] = o.gt;
-  out_i[4 * n + i] = o.gq;
-  out_i[5 * n + i] = o.filter_bits;
-  out_i[6 * n + i] = num_nc != nullptr ? num_nc[i] : 0;
-  out_f[0 * n + i] = o.freq;
-  out_f[1 * n + i] = o.sb_gatk;
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads)
+    score_tuples_kernel(const int32_t* __restrict__ tuples,
+                        const int32_t* __restrict__ num_nc, int64_t n,
+                        int32_t* __restrict__ out_i,
+                        float* __restrict__ out_f, ScoreParams p) {
+  constexpr int kLoci = tile_loci<kSplit>();
+  __shared__ __align__(16) int32_t s_in[kLoci * 6];
+  __shared__ __align__(16) int32_t s_nc[kLoci];
+  __shared__ Tile<kSplit> t;
+  const int64_t base = (int64_t)blockIdx.x * kLoci;
+  const int count = (int)min((int64_t)kLoci, n - base);  // ragged edge
+  stage(s_in, tuples + base * 6, count * 6);
+  if (num_nc != nullptr) stage(s_nc, num_nc + base, count);
+  stage_wait();
+  __syncthreads();
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const int32_t* r = s_in + j * 6;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      t.sup[d][j] = (float)r[d];
+      t.cov[d][j] = (float)r[3 + d];
+    }
+    t.sup_s[j] = r[2];
+    t.cov_s[j] = r[5];
+    if (num_nc == nullptr) s_nc[j] = 0;
+  }
+  __syncthreads();
+  const int32_t* nc = s_nc;
+  auto own = [=](int lo, int cnt, int lane) {  // the N-call count row
+    if (lane < cnt) out_i[6 * n + base + lo + lane] = nc[lo + lane];
+  };
+  score_tile(t, count, base, n, out_i, out_f, p, own);
 }
 
 extern "C" int score_tuples_launch(const int32_t* tuples,
@@ -56,11 +75,13 @@ extern "C" int score_tuples_launch(const int32_t* tuples,
                                    const ScoreParams* params, int device,
                                    void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 256;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
   return launch_on(device, [&] {
-    score_tuples_kernel<<<(unsigned int)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(tuples, num_nc, n, out_i,
-                                                  out_f, *params);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (split_roles(n, device))
+      score_tuples_kernel<true><<<tile_blocks<true>(n), kThreads, 0, s>>>(
+          tuples, num_nc, n, out_i, out_f, *params);
+    else
+      score_tuples_kernel<false><<<tile_blocks<false>(n), kThreads, 0, s>>>(
+          tuples, num_nc, n, out_i, out_f, *params);
   });
 }

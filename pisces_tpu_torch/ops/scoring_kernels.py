@@ -30,6 +30,7 @@ holds the kernels against the plain versions on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +49,8 @@ from pisces_tpu_torch.ops.scoring_params import (
     FILTER_BIT_LOW_DEPTH, FILTER_BIT_LOW_VARIANT_QSCORE, ScoringParams,
 )
 
-N_SERIES = 64        # fixed Poisson-tail series terms
+N_SERIES = 64        # Poisson-tail series terms (the kernels stop earlier
+                     # at the exact exit, csrc/score_locus.cuh)
 LN10 = 2.302585092994046
 HALF_LN_2PI = 0.9189385332046727
 _F32 = torch.float32
@@ -318,7 +320,9 @@ class _ScoreParams(ctypes.Structure):
             "bit_low_variant_qscore")]
 
 
+@functools.lru_cache(maxsize=None)
 def _c_params(params: ScoringParams) -> _ScoreParams:
+    """The C params of `params`, made once per ScoringParams."""
     nf, l1m = noise_constants(params)
     return _ScoreParams(
         nf, l1m, float(params.max_variant_qscore),
@@ -341,6 +345,11 @@ _ARGTYPES = {
 }
 
 
+# rows of each kernel's one int32 output buffer [rows, n]: seven int32 rows,
+# then two f32 rows, then (counts kernel) the six by-direction rows
+OUT_ROWS = {"score_tuples": 9, "score_loci": 15}
+
+
 class KernelLibrary:
     """The built kernel libraries and what their build reported."""
 
@@ -355,6 +364,29 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
             fn.argtypes = _ARGTYPES[name]
             self.launchers[name] = fn
+
+    def bind(self, name: str, inputs, out: torch.Tensor,
+             params: ScoringParams):
+        """A call with no arguments that launches kernel `name` on the
+        CUDA tensors `inputs` (None for an absent optional one) into `out`
+        (int32 [OUT_ROWS[name], n] on their device), on the device's current
+        stream, and raises on a refused launch. The pointers, the C params
+        and the stream are taken once, here; it counts no launch."""
+        fn = self.launchers[name]
+        n = out.shape[1]
+        p = out.data_ptr()
+        outs = (p, p + 7 * n * 4) + ((p + 9 * n * 4,)
+                                      if name == "score_loci" else ())
+        args = (*(t.data_ptr() if t is not None else None for t in inputs),
+                n, *outs, ctypes.byref(_c_params(params)), out.device.index,
+                torch.cuda.current_stream(out.device).cuda_stream)
+
+        def launch() -> None:
+            err = fn(*args)
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {err}")
+        return launch
 
 
 _library: Optional[KernelLibrary] = None
@@ -461,19 +493,16 @@ def _check_loci_inputs(counts: torch.Tensor, ref_code: torch.Tensor) -> None:
                          "the counts' device")
 
 
-def _launch(name: str, like: torch.Tensor, n: int, inputs, outputs,
-            params: ScoringParams) -> None:
-    """Launch kernel `name` over n loci on `like`'s device and current
-    stream (pointers of its two inputs, then of its outputs); raises on a
-    refused launch."""
-    fn = build_kernels().launchers[name]
-    cparams = _c_params(params)
-    stream = torch.cuda.current_stream(like.device).cuda_stream
-    err = fn(*inputs, n, *outputs, ctypes.byref(cparams), like.device.index,
-             stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+def _launch(name: str, inputs, n: int, params: ScoringParams) -> torch.Tensor:
+    """Launch kernel `name` over n loci on its inputs' device and current
+    stream into one new int32 [OUT_ROWS[name], n] output buffer, and count
+    the launch; raises on a refused launch."""
+    out = torch.empty((OUT_ROWS[name], n), dtype=torch.int32,
+                      device=inputs[0].device)
+    if n > 0:
+        build_kernels().bind(name, inputs, out, params)()
+        launch_counts[name] += 1
+    return out
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -504,14 +533,10 @@ def score_reference_tuples(tuples: torch.Tensor, params: ScoringParams,
     _check_inputs(tuples, num_no_calls)
     if not _on_cuda(tuples):
         return score_reference_tuples_plain(tuples, params, num_no_calls)
-    n = tuples.shape[0]
-    out_i = torch.empty((7, n), dtype=torch.int32, device=tuples.device)
-    out_f = torch.empty((2, n), dtype=_F32, device=tuples.device)
-    if n > 0:
-        nc = num_no_calls.data_ptr() if num_no_calls is not None else None
-        _launch("score_tuples", tuples, n, (tuples.data_ptr(), nc),
-                (out_i.data_ptr(), out_f.data_ptr()), params)
-    return _out_dict(tuples[:, 0:3], tuples[:, 3:6], *out_i, *out_f)
+    out = _launch("score_tuples", (tuples, num_no_calls), tuples.shape[0],
+                  params)
+    return _out_dict(tuples[:, 0:3], tuples[:, 3:6], *out[:7],
+                     *out[7:].view(_F32))
 
 
 def score_reference_loci(counts: torch.Tensor, ref_code: torch.Tensor,
@@ -535,12 +560,6 @@ def score_reference_loci(counts: torch.Tensor, ref_code: torch.Tensor,
     if not _on_cuda(counts):
         return score_reference_loci_plain(counts, ref_code, params)
     n = counts.shape[0]
-    out_i = torch.empty((7, n), dtype=torch.int32, device=counts.device)
-    out_f = torch.empty((2, n), dtype=_F32, device=counts.device)
-    out_dir = torch.empty((2, n, 3), dtype=torch.int32, device=counts.device)
-    if n > 0:
-        _launch("score_loci", counts, n,
-                (counts.data_ptr(), ref_code.data_ptr()),
-                (out_i.data_ptr(), out_f.data_ptr(), out_dir.data_ptr()),
-                params)
-    return _out_dict(out_dir[1], out_dir[0], *out_i, *out_f)
+    out = _launch("score_loci", (counts, ref_code), n, params)
+    by_dir = out[9:].view(2, n, 3)
+    return _out_dict(by_dir[1], by_dir[0], *out[:7], *out[7:9].view(_F32))

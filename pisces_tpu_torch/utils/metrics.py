@@ -142,3 +142,33 @@ def profiler_trace(trace_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def kernel_device_ms(fn, kernel: str, iters: int, tries: int = 2):
+    """(mean device ms, events seen): the device time of the CUDA kernel
+    whose name holds `kernel` over `iters` calls of fn(), from
+    torch.profiler's key_averages(), averaged over the events the trace
+    holds: the kernel alone, without the host's launch path. A trace now
+    and then holds fewer events than launches; then it traces again, up to
+    `tries` traces, and keeps the one with the most. (None, 0) where no
+    trace holds the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = (None, 0)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if kernel in e.key and e.device_time_total > 0]
+        count = sum(e.count for e in hits)
+        if count > best[1]:
+            best = (sum(e.device_time_total for e in hits) / count / 1e3,
+                    count)
+        if count == iters:
+            break
+    return best

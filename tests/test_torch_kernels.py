@@ -100,6 +100,98 @@ def test_plain_matches_pallas_and_xla(L):
     _assert_sb_close(out["sb_gatk"].numpy(), np.asarray(xla["sb_gatk"]))
 
 
+def _series_exit(k, lam, lower):
+    """One Poisson series of csrc/score_locus.cuh in scalar f32, with its
+    exact exit: each term as the 64-term plain series computes it, stopping
+    at the first term that is no larger than the one before and leaves the
+    sum unchanged. Returns (sum, terms run)."""
+    f32 = np.float32
+    k, lam = f32(k), f32(lam)
+    if lower:
+        lam = max(lam, f32(1e-30))
+    term = acc = f32(1.0)
+    for j in range(1, K.N_SERIES + 1):
+        if lower:
+            nxt = term * max(k - f32(j - 1), f32(0.0)) / lam
+        else:
+            nxt = term * lam / (k + f32(j))
+        s = acc + nxt
+        if nxt <= term and s == acc:
+            return acc, j
+        term, acc = nxt, s
+    return acc, K.N_SERIES
+
+
+def _series_grid(rng, grid, lower, n=1500):
+    """f32 (k, lam) pairs on the branch each series serves: the upper series
+    for k > lam, the lower for m = k - 1 with k <= lam."""
+    f32 = np.float32
+    if grid == "m0":
+        return np.zeros(n, f32), rng.uniform(0.0, 1e4, n).astype(f32)
+    if grid == "deep":              # coverage up to 5,000, lam = 0.01 x cov
+        cov = rng.integers(1, 5001, n).astype(f32)
+        lam = f32(0.01) * cov
+        k = (np.floor(lam * rng.random(n)) if lower
+             else np.maximum(cov - rng.integers(0, 4, n), np.floor(lam) + 1))
+    elif grid == "band":            # k ~ lam
+        lam = rng.uniform(0.5, 50.0, n).astype(f32)
+        k = (np.floor(lam) - rng.integers(0, 4, n) if lower
+             else np.floor(lam) + rng.integers(1, 5, n))
+    else:                           # large lam, up to 1e5
+        lam = rng.uniform(1e3, 1e5, n).astype(f32)
+        k = (np.floor(lam * rng.uniform(0.95, 1.0, n)) if lower
+             else np.ceil(lam * rng.uniform(1.0, 1.05, n)) + 1)
+    k = np.maximum(k, 1).astype(f32)
+    return (np.maximum(k - 1, 0).astype(f32) if lower else k), lam
+
+
+@pytest.mark.parametrize("series,grid", [
+    ("upper", "deep"), ("upper", "band"), ("upper", "large_lambda"),
+    ("lower", "deep"), ("lower", "band"), ("lower", "large_lambda"),
+    ("lower", "m0")])
+def test_series_exit_rule_is_bit_equal_to_64_terms(series, grid):
+    """The kernels' exact exit gives the 64-term plain series' f32 sum, bit
+    for bit: the terms do not grow, and once one leaves the sum unchanged
+    every later one does."""
+    lower = series == "lower"
+    k, lam = _series_grid(np.random.default_rng(21), grid, lower)
+    plain = (K._lower_series if lower else K._upper_series)(
+        torch.from_numpy(k), torch.from_numpy(lam)).numpy()
+    got = np.array([_series_exit(a, b, lower)[0] for a, b in zip(k, lam)],
+                   np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), plain.view(np.int32))
+
+
+def test_series_exit_rule_stops_early_on_deep_loci():
+    """At the main path's deep reference loci (support 750, lam 7.5) the
+    upper series stops after 4 terms; the lower series after m + 1."""
+    assert _series_exit(750, np.float32(0.01) * np.float32(750), False)[1] \
+        == 4
+    assert _series_exit(3, 40.0, True)[1] <= 4
+    assert _series_exit(0, 5.0, True)[1] == 1
+
+
+def test_overall_tail_is_the_q_tail():
+    """Q's tail P(X >= support; noise_freq * total) and the overall
+    strand-bias side's tail (support; total * noise_freq) are one f32 call:
+    the products are bit-equal, so the kernels compute the tail once."""
+    rng = np.random.default_rng(22)
+    total = torch.from_numpy(rng.integers(1, 20_000, 4000).astype(np.float32))
+    support = torch.floor(total * torch.from_numpy(
+        rng.random(4000).astype(np.float32)))
+    nf, l1m = K.noise_constants(ScoringParams())
+    noise_freq = torch.tensor(nf, dtype=torch.float32)
+    lam_q = noise_freq * total
+    lam_sb = total * noise_freq
+    assert torch.equal(lam_q.view(torch.int32), lam_sb.view(torch.int32))
+    tail, _ = K._poisson_tail(support, lam_q)
+    cfp, cvfgz = K._sb_stats(support, total, noise_freq,
+                             torch.tensor(l1m, dtype=torch.float32))
+    has = support > 0
+    assert torch.equal(cfp[has], torch.clamp(tail, min=0.0)[has])
+    assert torch.equal(cvfgz[has], torch.clamp(1.0 - tail, min=0.0)[has])
+
+
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     K.reset_launch_counts()
     rng = np.random.default_rng(5)
@@ -256,14 +348,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _deep(rng, L=4099):
+    """Deep reference loci: coverage up to 5,000, support the coverage less
+    a few reads."""
+    cov = rng.integers(0, 1667, size=(L, 3)).astype(np.int32)
+    sup = np.maximum(cov - rng.integers(0, 4, size=(L, 3)), 0).astype(np.int32)
+    return sup, cov
+
+
+def _large_lambda(rng, L=4099):
+    """Coverage up to 10 million (lam up to 1e5), support 0-3% of it."""
+    cov = rng.integers(0, 3_333_333, size=(L, 3)).astype(np.int32)
+    sup = (cov * 0.03 * rng.random((L, 3))).astype(np.int32)
+    return sup, cov
+
+
+# the tile edges, the main path's tuple count and mesh tiles (ragged against
+# a 32-locus tile), a large batch, and the series' long and short exits
+CARD_CASES = [1, 7, 511, 513, 6_119, 50_176, 200_000, 200_192, "noise_band",
+              "deep", "large_lambda"]
+
+
+def _card_tuples(rng, L):
+    if L == "noise_band":
+        return _noise_band(rng)
+    if L == "deep":
+        return _deep(rng)
+    if L == "large_lambda":
+        return _large_lambda(rng)
+    return _tuples(rng, L)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [1, 7, 511, 513, 200_000, "noise_band"])
+@pytest.mark.parametrize("L", CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, L):
     rng = np.random.default_rng(9)
-    if L == "noise_band":
-        sup, cov = _noise_band(rng)
-    else:
-        sup, cov = _tuples(rng, L)
+    sup, cov = _card_tuples(rng, L)
     t = torch.from_numpy(np.concatenate([sup, cov], 1)).to(cuda_device)
     nc = torch.from_numpy(rng.integers(0, 8, len(sup)).astype(np.int32)
                           ).to(cuda_device)
@@ -278,14 +398,28 @@ def test_kernel_matches_plain_on_card(cuda_device, L):
                      ref["sb_gatk"].cpu().numpy())
 
 
+def _tuple_counts(rng, sup, cov):
+    """(counts [L, 6, 3, 1], ref codes) whose derived tuples are (sup, cov):
+    support on the reference row, the rest of the coverage on another
+    base."""
+    L = len(sup)
+    ref = rng.integers(0, 4, L)
+    other = (ref + 1 + rng.integers(0, 3, L)) % 4
+    counts = np.zeros((L, 6, 3, 1), np.int32)
+    counts[np.arange(L), ref, :, 0] = sup
+    counts[np.arange(L), other, :, 0] = cov - sup
+    return counts, ref.astype(np.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [1, 7, 511, 513, 200_000, "noise_band",
-                               "ref_n"])
+@pytest.mark.parametrize("L", CARD_CASES + ["ref_n"])
 def test_loci_kernel_matches_plain_on_card(cuda_device, L):
     rng = np.random.default_rng(10)
     if L == "ref_n":
         counts4, ref = _ref_n_case(rng)
-    elif L == 200_000:
+    elif L in ("deep", "large_lambda"):
+        counts4, ref = _tuple_counts(rng, *_card_tuples(rng, L))
+    elif isinstance(L, int) and L >= 6_119:
         counts4 = rng.integers(0, 60, size=(L, 6, 3, 1)).astype(np.int32)
         ref = rng.integers(0, 6, size=L).astype(np.int32)
     else:
@@ -301,6 +435,31 @@ def test_loci_kernel_matches_plain_on_card(cuda_device, L):
         assert torch.equal(out[k], plain[k]), k
     _assert_sb_close(out["sb_gatk"].cpu().numpy(),
                      plain["sb_gatk"].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_stage_unaligned_inputs_on_card(cuda_device):
+    """Contiguous views that start one row in (24 or 72 bytes, and 4 for
+    the per-locus rows) are not 16-byte aligned: the kernels stage them one
+    int32 a thread instead of 16-byte copies, with the same outputs."""
+    rng = np.random.default_rng(14)
+    sup, cov = _tuples(rng, 1001)
+    t = torch.from_numpy(np.concatenate([sup, cov], 1)).to(cuda_device)[1:]
+    nc = torch.from_numpy(rng.integers(0, 8, 1001).astype(np.int32)
+                          ).to(cuda_device)[1:]
+    out = K.score_reference_tuples(t, ScoringParams(), num_no_calls=nc)
+    counts4, ref = _loci_case(rng, 1001)
+    c = torch.from_numpy(counts4.sum(-1).astype(np.int32)).to(cuda_device)[1:]
+    r = torch.from_numpy(ref).to(cuda_device)[1:]
+    lout = K.score_reference_loci(c, r, ScoringParams())
+    torch.cuda.synchronize()
+    assert t.data_ptr() % 16 and c.data_ptr() % 16 and r.data_ptr() % 16
+    ref_t = K.score_reference_tuples_plain(t, ScoringParams(), num_no_calls=nc)
+    ref_l = K.score_reference_loci_plain(c, r, ScoringParams())
+    for k in INT_KEYS + ("num_no_calls",):
+        assert torch.equal(out[k], ref_t[k]), k
+    for k in LOCI_EXACT:
+        assert torch.equal(lout[k], ref_l[k]), k
 
 
 @pytest.mark.cuda
