@@ -7,8 +7,9 @@ Phases; any failure raises and the script exits non-zero without printing
 its result lines:
 
   1. build  — compile every CUDA kernel from the sources in this checkout
-     (one nvcc per source, in parallel, sm_90a) and print the build time and
-     ptxas report;
+     (one nvcc per source, in parallel, sm_90a) and, beside them, the native
+     host module (g++ from pisces_tpu_torch/io/_native/*.cpp), and print the
+     build times, the ptxas report and the zlib the host module links;
   2. kernels — hold each kernel against its plain PyTorch version on the
      card on seeded inputs (integer outputs exact, floats within the stated
      tolerance): the tuple kernel and the counts kernel at L = 1, 7, 511,
@@ -18,13 +19,17 @@ its result lines:
      on reference-N rows;
   3. main path — write a synthetic messy workload (one 200 kb chromosome,
      1.5M 100 bp reads: 750x, an enrichment-panel depth) and run the
-     port's CLI entry point on the card with -gVCF true: the launch counts
-     are set to 0 just before and read just after, and the tuple kernel
-     must have launched. The same run with -backend numpy (all-host f64)
-     must give the same VCF body, the reference-line strand bias within
-     1e-3 dB (5% below -40 dB). The run's read events, reference sequence
-     and single-device reference-locus outputs are recorded;
-  4. mesh — the recorded events through the mesh-sharded scoring path
+     port's CLI entry point on the card with -gVCF true, which takes the
+     native flow (C++ decode and pileup pass): the launch and native-pileup
+     counts are set to 0 just before and read just after; the native pileup
+     must have run and the tuple kernel must have launched. The same run
+     with -backend numpy (all-host f64, native flow) must give the same VCF
+     body, the reference-line strand bias within 1e-3 dB (5% below -40 dB).
+     Then one run of the Python flow (open_bam(prefer_native=False),
+     -backend torch) must hand the tuple kernel as many unique tuples and
+     give a byte-equal VCF body; its read events, reference sequence and
+     single-device reference-locus outputs are recorded;
+  4. mesh — the Python flow's events through the mesh-sharded scoring path
      (parallel/sharding.sharded_score_reference_positions, the function
      -MeshDevices calls) on meshes of 1 and 4 shards on the one card, at
      the main path's full width: the counts are set to 0 just before each
@@ -44,8 +49,9 @@ its result lines:
      launcher's time alone, the plain version's, and the bound (the bytes
      each call must move and the f32 operations its data needs, each series
      counted to its exact exit);
-  7. report — the kernels line (JSON), end-to-end rates, the mesh phase's
-     wall and stages, peak device memory, the card's name and power limit,
+  7. report — the kernels line (JSON), end-to-end rates and stages of both
+     flows, the mesh phase's wall and stages, peak device memory (main
+     path), the card's name and power limit,
      and the contract line {"ok": true, "device": {...}} last.
 
 It needs the pisces_tpu_torch package beside it and a CUDA card; it fails
@@ -53,6 +59,7 @@ without either.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -419,17 +426,34 @@ def check_loci_kernel(device):
 # The main path
 # ---------------------------------------------------------------------------
 
+def _run_cli(app, bam, genome, out, backend):
+    """One CLI run; returns (wall seconds, stage snapshot, VCF body)."""
+    import torch
+    from pisces_tpu_torch.entry import vcf_body
+    from pisces_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    t0 = time.perf_counter()
+    rc = app.main(["-bam", bam, "-g", genome, "-o", out, "-gVCF", "true",
+                   "-backend", backend, "-device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"-backend {backend} run into {out} exited {rc}")
+    return (wall, metrics.snapshot()["stages"],
+            vcf_body(os.path.join(out, "b.genome.vcf")))
+
+
 def run_main_path(work: str, device):
     """Phase 3. Returns (launch counts, the tuples handed to the tuple
-    kernel, the recorded single-device gVCF scoring inputs and outputs,
+    kernel, the Python flow's recorded gVCF scoring inputs and outputs,
     timings and counts for the report)."""
     import torch
     import pisces_tpu_torch.apps.pisces as app
     import pisces_tpu_torch.calling.fast_gvcf as fast_gvcf
-    from pisces_tpu_torch.entry import compare_vcf_bodies, vcf_body
+    from pisces_tpu_torch.entry import compare_vcf_bodies
+    from pisces_tpu_torch.io import native
     from pisces_tpu_torch.ops import scoring_kernels as K
     from pisces_tpu_torch.synthetic import write_synthetic_workload
-    from pisces_tpu_torch.utils.metrics import metrics
 
     t0 = time.perf_counter()
     bam, genome = write_synthetic_workload(work, 1, CHROM_LEN, N_READS,
@@ -438,13 +462,14 @@ def run_main_path(work: str, device):
         f"({N_READS * 100 / CHROM_LEN:.0f}x), written in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # record what the main path hands the kernel and the gVCF scoring: the
-    # tuples, to time the kernel there; the read events, the reference and
-    # the single-device outputs, for the mesh phase
+    # record what each run hands the kernel (its tuples, to time the kernel
+    # there and to count them) and, in the Python flow, the read events, the
+    # reference and the single-device outputs, for the mesh phase
     seen, rec = [], {}
     launch = K.score_reference_tuples
     events = app.build_base_events
     score_positions = fast_gvcf.score_reference_positions
+    open_bam = app.open_bam
 
     def recording(tuples, params, num_no_calls=None):
         seen.append((tuples, params))
@@ -459,41 +484,37 @@ def run_main_path(work: str, device):
         rec["single"] = score_positions(pc, refseq, params, **kw)
         return rec["single"]
 
+    # the main path: the default run, native flow, on the card
     K.score_reference_tuples = recording
-    app.build_base_events = recording_events
-    fast_gvcf.score_reference_positions = recording_positions
-    metrics.reset()
     torch.cuda.reset_peak_memory_stats(device)
+    native.reset_pileup_calls()
     K.reset_launch_counts()
-    t0 = time.perf_counter()
     try:
-        rc = app.main(["-bam", bam, "-g", genome, "-o",
-                       os.path.join(work, "gpu"), "-gVCF", "true",
-                       "-backend", "torch", "-device", "cuda"])
-        torch.cuda.synchronize()
+        wall, stages, port = _run_cli(app, bam, genome,
+                                      os.path.join(work, "gpu"), "torch")
     finally:
         K.score_reference_tuples = launch
-        app.build_base_events = events
-        fast_gvcf.score_reference_positions = score_positions
-    wall = time.perf_counter() - t0
     launches = dict(K.launch_counts)
+    pileups = native.pileup_calls
     peak = torch.cuda.max_memory_allocated(device)
-    stages = metrics.snapshot()["stages"]
-    if rc != 0:
-        raise RuntimeError(f"main path exited {rc}")
+    if pileups != 1:
+        raise AssertionError(f"the main path ran the native pileup {pileups} "
+                             "times for one chromosome")
     if launches["score_tuples"] < 1:
         raise AssertionError("kernel score_tuples was not launched on the "
                              "main path")
+    main_tuples = sum(t.shape[0] for t, _ in seen)
+    log(f"main path (native flow): native_pileup ran {pileups} time(s), "
+        f"score_tuples launched {launches['score_tuples']} time(s) on "
+        f"{main_tuples:,} unique tuples")
 
-    metrics.reset()
-    t0 = time.perf_counter()
-    rc = app.main(["-bam", bam, "-g", genome, "-o", os.path.join(work, "host"),
-                   "-gVCF", "true", "-backend", "numpy", "-device", "cuda"])
-    host_wall = time.perf_counter() - t0
-    if rc != 0:
-        raise RuntimeError(f"-backend numpy run exited {rc}")
-    port = vcf_body(os.path.join(work, "gpu", "b.genome.vcf"))
-    host = vcf_body(os.path.join(work, "host", "b.genome.vcf"))
+    native.reset_pileup_calls()
+    host_wall, host_stages, host = _run_cli(app, bam, genome,
+                                            os.path.join(work, "host"),
+                                            "numpy")
+    if native.pileup_calls != 1:
+        raise AssertionError("the -backend numpy run did not take the "
+                             "native flow")
     n_lines = compare_vcf_bodies(port, host)
     n_var = sum(1 for ln in port if ln.split("\t")[4] != "."
                 and ln.split("\t")[6] == "PASS")
@@ -501,9 +522,40 @@ def run_main_path(work: str, device):
         raise AssertionError("no PASS variant calls on planted SNVs")
     log(f"main path: {n_lines:,} gVCF lines, {n_var} PASS variants; "
         f"matches -backend numpy")
-    return launches, seen, rec, {"wall_s": wall, "host_wall_s": host_wall,
-                                 "lines": n_lines, "peak_bytes": peak,
-                                 "stages": stages}
+
+    # the Python flow (pure-Python reader, read events, torch count build)
+    n_seen = len(seen)
+    K.score_reference_tuples = recording
+    app.build_base_events = recording_events
+    fast_gvcf.score_reference_positions = recording_positions
+    app.open_bam = lambda path: native.open_bam(path, prefer_native=False)
+    native.reset_pileup_calls()
+    try:
+        py_wall, py_stages, py = _run_cli(app, bam, genome,
+                                          os.path.join(work, "python"),
+                                          "torch")
+    finally:
+        K.score_reference_tuples = launch
+        app.build_base_events = events
+        fast_gvcf.score_reference_positions = score_positions
+        app.open_bam = open_bam
+    if native.pileup_calls != 0 or "events" not in rec:
+        raise AssertionError("the Python-flow run did not take the Python "
+                             "flow")
+    py_tuples = sum(t.shape[0] for t, _ in seen[n_seen:])
+    if py_tuples != main_tuples:
+        raise AssertionError(f"the native flow scored {main_tuples:,} unique "
+                             f"tuples, the Python flow {py_tuples:,}")
+    if py != port:
+        raise AssertionError("the Python flow's VCF body differs from the "
+                             "native flow's")
+    log(f"Python flow: the same {py_tuples:,} unique tuples and a VCF body "
+        "byte-equal to the native flow's")
+    return launches, seen[:n_seen], rec, {
+        "wall_s": wall, "host_wall_s": host_wall, "py_wall_s": py_wall,
+        "lines": n_lines, "peak_bytes": peak, "stages": stages,
+        "host_stages": host_stages, "py_stages": py_stages,
+        "pileups": pileups, "tuples": main_tuples}
 
 
 # ---------------------------------------------------------------------------
@@ -693,19 +745,32 @@ def main_smoke() -> int:
         raise SystemExit("chip_smoke: FAIL: CUDA is not available")
     from pisces_tpu_torch.ops import scoring_kernels as K
     from pisces_tpu_torch.ops.scoring_params import ScoringParams
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = _nvidia_smi()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    # phase 1: build
-    lib = K.build_kernels()
+    # phase 1: build the CUDA kernels (nvcc) and the native host module
+    # (g++) side by side
+    from concurrent.futures import ThreadPoolExecutor
+    from pisces_tpu_torch.io import native
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(native.build_native)
+        lib = K.build_kernels()
+        nlib = host_build.result()
     log("built " + ", ".join(os.path.relpath(p, REPO)
                              for p in lib.paths.values())
         + f" in {lib.build_seconds:.1f} s")
     for line in lib.build_log.splitlines():
         if "ptxas" in line or line.endswith(":"):
             log(line.strip())
+    zlib_version = nlib.lib.zlibVersion
+    zlib_version.restype = ctypes.c_char_p
+    log(f"built {os.path.relpath(nlib.path, REPO)} (g++ from "
+        f"pisces_tpu_torch/io/_native/*.cpp) in {nlib.build_seconds:.1f} s; "
+        f"zlib: the system <zlib.h> and -lz, runtime "
+        f"{zlib_version().decode()}")
 
     # phase 2: kernels against their plain versions
     err = {"score_tuples": check_tuple_kernel(device),
@@ -718,7 +783,7 @@ def main_smoke() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # phase 4: the mesh path on the main path's events
+    # phase 4: the mesh path on the Python flow's events
     mesh_launches, mesh_err, tiles, mesh_runs = run_mesh_path(rec, device)
     err["score_loci"] = max(err["score_loci"], mesh_err)
     del rec
@@ -751,11 +816,17 @@ def main_smoke() -> int:
 
     reads_s = N_READS / e2e["wall_s"]
     lines_s = e2e["lines"] / e2e["wall_s"]
-    log(f"end to end (-backend torch): {e2e['wall_s']:.2f} s, "
+    log(f"end to end, native flow (-backend torch): {e2e['wall_s']:.2f} s, "
         f"{reads_s:,.0f} reads/s, {lines_s:,.0f} gVCF lines/s; "
-        f"-backend numpy {e2e['host_wall_s']:.2f} s")
-    log("stages (-backend torch): " + ", ".join(
-        f"{k} {v['seconds']:.2f} s" for k, v in e2e["stages"].items()))
+        f"-backend numpy {e2e['host_wall_s']:.2f} s; Python flow "
+        f"(-backend torch) {e2e['py_wall_s']:.2f} s, "
+        f"{N_READS / e2e['py_wall_s']:,.0f} reads/s")
+    for flow, key in (("native flow, -backend torch", "stages"),
+                      ("native flow, -backend numpy", "host_stages"),
+                      ("Python flow, -backend torch", "py_stages")):
+        log(f"stages ({flow}): " + ", ".join(
+            f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
+            for k, v in e2e[key].items()))
     for r in mesh_runs:
         log(f"mesh {r['shards']} shard(s): {r['wall_s']:.2f} s, stages " +
             ", ".join(f"{k} {v['seconds']:.2f} s"
@@ -801,6 +872,7 @@ def main_smoke() -> int:
         "bound_by": lt["bound_by"],
         "library_ms": None,
     }]
+    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

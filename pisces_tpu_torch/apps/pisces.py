@@ -5,11 +5,12 @@ Logic/SmallVariantCaller.cs:79-116, Logic/Processing/GenomeProcessor.cs:13-193):
 per (BAM x chromosome) work, candidate finding + pileup counts + per-locus
 scoring, VCF/gVCF output.
 
-This slice runs whole chromosomes serially through the pure-Python read
-flow (BamReader -> build_base_events -> device count build), with somatic
-ploidy, the default filters, optional -IntervalPaths and -MeshDevices N
-(the gVCF reference scoring and large candidate batches sharded over N
-devices of -device's type, parallel/sharding.py). Options outside it raise
+This slice runs whole chromosomes serially through the native read flow
+(the C++ BAM decode and pileup pass of io/native, as the reference
+package's default run), with somatic ploidy, the default filters, optional
+-IntervalPaths and -MeshDevices N (the gVCF reference scoring and large
+candidate batches sharded over N devices of -device's type,
+parallel/sharding.py, from Python read events). Options outside it raise
 NotImplementedError naming the ROADMAP item that ports them.
 
     python -m pisces_tpu_torch.apps.pisces -bam B -g G -o O -gVCF true \\
@@ -25,9 +26,14 @@ from typing import List, Optional
 import numpy as np
 
 from pisces_tpu_torch.device import resolve_device
-from pisces_tpu_torch.domain.types import CoverageMethod, PloidyModel
-from pisces_tpu_torch.io.bam import BamReader, filter_batch
+from pisces_tpu_torch.domain.types import (
+    BASE_TO_ALLELE, CoverageMethod, PloidyModel,
+)
+from pisces_tpu_torch.io.bam import filter_batch
 from pisces_tpu_torch.io.fasta import ChrReference, Genome
+from pisces_tpu_torch.io.native import (
+    NativeBamReader, native_pileup, open_bam,
+)
 from pisces_tpu_torch.io.vcf_write import VcfWriter, VcfWriterConfig
 from pisces_tpu_torch.calling.caller import (
     AlleleCaller, CallerConfig, make_reference_candidates,
@@ -36,6 +42,9 @@ from pisces_tpu_torch.calling.collapser import VariantCollapser
 from pisces_tpu_torch.calling.source import AlleleSource
 from pisces_tpu_torch.options import PiscesApplicationOptions
 from pisces_tpu_torch.pileup.candidates import find_candidates_batch
+from pisces_tpu_torch.pileup.candidates_fast import (
+    aggregate_native_mismatches, find_indel_candidates,
+)
 from pisces_tpu_torch.pileup.counts import (
     build_counts_device, build_counts_host, candidate_anchor_positions,
 )
@@ -84,14 +93,19 @@ def _fast_gvcf_eligible(options: PiscesApplicationOptions) -> bool:
 
 
 def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
-                    bam: BamReader, intervals=None, device="cuda", mesh=None):
+                    bam, intervals=None, device="cuda", mesh=None):
     """Run the full calling pipeline for one chromosome.
 
-    `device` is the torch device for the count build, the tuple-scoring
-    kernel and large candidate batches ("cuda" unless the caller passes
-    "cpu"); None runs everything on the host in numpy (-backend numpy).
-    `mesh` (parallel/sharding.Mesh, -MeshDevices > 1) scores the gVCF
-    reference loci sharded over its devices from the read events.
+    `bam` is a reader from io/native.open_bam. The native reader takes the
+    native flow: C++ decode, then one C++ pileup pass for the counts, the
+    unique gVCF tuples and the SNV mismatches. The Python reader
+    (open_bam(prefer_native=False)) takes the Python flow: read events and
+    a torch count build. `device` is the torch device for the Python flow's
+    count build, the tuple-scoring kernel and large candidate batches
+    ("cuda" unless the caller passes "cpu"); None runs everything on the
+    host in numpy (-backend numpy). `mesh` (parallel/sharding.Mesh,
+    -MeshDevices > 1) scores the gVCF reference loci sharded over its
+    devices from the read events, so it always takes the Python events.
     Returns the called alleles in genome order, plus the columnar reference
     lines (positions, lines) when the fast gVCF path applies.
     """
@@ -106,29 +120,57 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
         raise _not_ported("read-collapsed input", 7)
 
     ref_id = bam.header.ref_index(chrom.name)
+    native = isinstance(bam, NativeBamReader)
     with metrics.stage("bam_fetch"):
-        batch = bam.fetch(ref_id=ref_id)
+        # the native reader serves seq/qual/cigar as zero-copy views into
+        # its decode buffers: this call consumes the batch before the
+        # handle's next fetch, and its pileup does not invalidate them
+        batch = (bam.fetch(ref_id=ref_id, as_views=True) if native
+                 else bam.fetch(ref_id=ref_id))
     metrics.count("reads", batch.n)
     keep = filter_batch(batch, bf.minimum_map_quality, bf.remove_duplicates,
                         bf.only_use_proper_pairs)
 
-    with metrics.stage("candidates"):
-        candidates, _ = find_candidates_batch(
-            chrom.name, chrom.sequence, batch, keep,
-            bf.minimum_base_call_quality, options.call_mnvs,
-            options.max_size_mnv, options.max_gap_between_mnv,
-            options.tracked_anchor_size, track_open_ended=options.collapse)
-    anchor_positions = candidate_anchor_positions(candidates)
-    with metrics.stage("pileup"):
-        ev = build_base_events(batch, keep, bf.minimum_base_call_quality,
-                               options.tracked_anchor_size)
-        if device is not None:
-            pc = build_counts_device(ev, anchor_size=options.tracked_anchor_size,
-                                     anchored_positions=anchor_positions,
-                                     device=device)
-        else:
-            pc = build_counts_host(ev, anchor_size=options.tracked_anchor_size,
-                                   anchored_positions=anchor_positions)
+    # the native flow needs a batch from the native handle; the mesh scores
+    # from the read events, so -MeshDevices keeps the Python events on the
+    # natively decoded batch
+    if batch._from_native_handle and mesh is None:
+        # C++ pass: events, count scatter, scoring tuples and SNV mismatch
+        # extraction in one go; indels come from the CIGAR walk before it
+        with metrics.stage("candidates"):
+            indels = find_indel_candidates(
+                chrom.name, chrom.sequence, batch, keep,
+                bf.minimum_base_call_quality, options.tracked_anchor_size,
+                track_open_ended=options.collapse)
+        anchor_positions = candidate_anchor_positions(indels)
+        with metrics.stage("pileup"):
+            pc, mm = native_pileup(bam, keep, bf.minimum_base_call_quality,
+                                   options.tracked_anchor_size,
+                                   anchor_positions,
+                                   ref_codes=BASE_TO_ALLELE[chrom.sequence],
+                                   track_open_ended=options.collapse)
+        with metrics.stage("candidates"):
+            candidates = aggregate_native_mismatches(
+                chrom.name, chrom.sequence, *mm) + indels
+    else:
+        with metrics.stage("candidates"):
+            candidates, _ = find_candidates_batch(
+                chrom.name, chrom.sequence, batch, keep,
+                bf.minimum_base_call_quality, options.call_mnvs,
+                options.max_size_mnv, options.max_gap_between_mnv,
+                options.tracked_anchor_size, track_open_ended=options.collapse)
+        anchor_positions = candidate_anchor_positions(candidates)
+        with metrics.stage("pileup"):
+            ev = build_base_events(batch, keep, bf.minimum_base_call_quality,
+                                   options.tracked_anchor_size)
+            if device is not None:
+                pc = build_counts_device(
+                    ev, anchor_size=options.tracked_anchor_size,
+                    anchored_positions=anchor_positions, device=device)
+            else:
+                pc = build_counts_host(
+                    ev, anchor_size=options.tracked_anchor_size,
+                    anchored_positions=anchor_positions)
     source = AlleleSource(pc)
 
     fast_gvcf = _fast_gvcf_eligible(options)
@@ -217,13 +259,13 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
 def write_spliced(writer, variant_alleles, ref_lines) -> None:
     """Merge the columnar reference-line stream with object-path variant
     alleles, in position order; ref lines at emitted-variant positions are
-    pruned (ComputeGenotypeAndFilterAllele ref-pruning semantics)."""
+    pruned (ComputeGenotypeAndFilterAllele ref-pruning semantics).
+    `ref_lines` is None or (positions, fast_gvcf.RefLineBlock)."""
     variant_positions = {}
     for a in variant_alleles:
         variant_positions.setdefault(a.position, []).append(a)
     if ref_lines is None:
-        positions = np.empty(0, np.int64)
-        lines: List[str] = []
+        positions, lines = np.empty(0, np.int64), None
     else:
         positions, lines = ref_lines
         positions = np.asarray(positions, dtype=np.int64)
@@ -233,12 +275,10 @@ def write_spliced(writer, variant_alleles, ref_lines) -> None:
 
     def _bulk_refs_upto(j: int) -> None:
         nonlocal ri
-        while j > ri:
-            # chunked join: bounded peak memory on WGS-length runs
-            k = min(j, ri + 262_144)
-            fh.write("\n".join(lines[ri:k]))
-            fh.write("\n")
-            ri = k
+        if j > ri:
+            # one buffer-slice write, no per-line string objects
+            lines.write_range(fh, ri, j)
+            ri = j
 
     for pos in sorted(variant_positions):
         # bulk-write the run of reference lines before this variant locus
@@ -260,6 +300,10 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
                 device="cuda", backend: str = "torch") -> str:
     """Call one BAM, chromosome by chromosome; returns the VCF path.
 
+    The BAM opens with io/native.open_bam, so the run takes the native
+    flow; a caller that swaps in open_bam(path, prefer_native=False) gets
+    the pure-Python reader and flow.
+
     `device` is "cuda" unless the caller asks for "cpu"; it raises when
     CUDA is absent. backend "numpy" keeps all scoring but the mesh's on the
     f64 host path. With options.mesh_devices > 1 the gVCF reference loci
@@ -276,7 +320,7 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
     if options.mesh_devices > 1:
         from pisces_tpu_torch.parallel.sharding import get_mesh
         mesh = get_mesh(options.mesh_devices, device)
-    bam = BamReader(bam_path)
+    bam = open_bam(bam_path)
     gvcf = options.vcf_writing_parameters.output_gvcf_file
     if out_vcf is None:
         stem = os.path.basename(bam_path)

@@ -7,7 +7,8 @@ Candidate + CalledAllele object per covered position, this path:
   1. scores every touched position's unique (support, coverage) tuple in
      one pass, on a torch device through the hand-written kernel
      (ops/scoring_kernels.score_reference_tuples) or on the f64 host path,
-  2. formats reference VCF lines columnar on the host,
+  2. formats reference VCF lines columnar on the host (each line's tail
+     once per unique tuple, the lines in C++),
   3. leaves variant positions to the exact object pipeline and splices the
      two streams by position at write time.
 
@@ -16,8 +17,6 @@ needing non-columnar semantics (gapped-MNV ref adjustments) fall back to the
 object path.
 """
 from __future__ import annotations
-
-from typing import List
 
 import numpy as np
 import torch
@@ -53,8 +52,11 @@ def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
     outputs plus the per-position inverse index: every scoring output is a
     pure function of the (support_by_dir, coverage_by_dir) 6-tuple, so the
     expensive math runs once per unique tuple (U << L for gVCF reference
-    loci) and line formatting memoizes per unique tuple too. `device` is the
-    torch device that scores large tuple batches; None scores on the host.
+    loci) and line formatting memoizes per unique tuple too. The tuples
+    come from the native pileup when it ran (pc.gvcf_unique, or
+    pc.pos_tuples with intervals), so the dense [L, 6, 3] tensor is never
+    re-reduced in Python. `device` is the torch device that scores large
+    tuple batches; None scores on the host.
     """
     from pisces_tpu_torch.domain.types import BASE_TO_ALLELE, COVERAGE_CONTRIBUTING_ALLELES
 
@@ -66,33 +68,44 @@ def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
         positions = np.concatenate(
             [np.arange(rs, re_ + 1, dtype=np.int64) for rs, re_ in ranges])
         rows = pc.pos_index(positions) if nb else np.full(len(positions), -1)
-        flat = pc.counts_t.reshape(nb * pc.block_size,
-                                   *pc.counts_t.shape[2:]) if nb else None
-        counts = np.zeros((len(positions),) + tuple(pc.counts_t.shape[2:]),
-                          pc.counts_t.dtype)
         hit = rows >= 0
-        if flat is not None:
-            counts[hit] = flat[rows[hit]]
-        ref_codes = BASE_TO_ALLELE[refseq[positions - 1]].astype(np.int32)
-        cov_alleles = np.array([int(a) for a in COVERAGE_CONTRIBUTING_ALLELES])
-        all_cov_by_dir = counts[:, cov_alleles, :].sum(axis=1)
-        all_support_by_dir = counts[np.arange(len(counts)), ref_codes, :]
+        if pc.pos_tuples is not None:
+            tup = np.zeros((len(positions), pc.pos_tuples.shape[1]),
+                           pc.pos_tuples.dtype)
+            tup[hit] = pc.pos_tuples[rows[hit]]
+            all_support_by_dir = tup[:, :3]
+            all_cov_by_dir = tup[:, 3:6]
+        else:
+            flat = pc.counts_t.reshape(nb * pc.block_size,
+                                       *pc.counts_t.shape[2:]) if nb else None
+            counts = np.zeros((len(positions),) + tuple(pc.counts_t.shape[2:]),
+                              pc.counts_t.dtype)
+            if flat is not None:
+                counts[hit] = flat[rows[hit]]
+            ref_codes = BASE_TO_ALLELE[refseq[positions - 1]].astype(np.int32)
+            cov_alleles = np.array([int(a) for a in COVERAGE_CONTRIBUTING_ALLELES])
+            all_cov_by_dir = counts[:, cov_alleles, :].sum(axis=1)
+            all_support_by_dir = counts[np.arange(len(counts)), ref_codes, :]
     elif nb == 0:
         return np.empty(0, np.int64), None
+    elif pc.gvcf_unique is not None:
+        # the C++ pileup already selected the covered in-reference loci and
+        # deduped them to unique tuples (pileup_gvcf_unique)
+        positions, uniq, inv = pc.gvcf_unique
+        if len(positions) == 0:
+            return positions, None
+        return _finish_scoring(positions, uniq, inv, None, refseq, params,
+                               device)
     else:
         block_size = pc.block_size
         starts = (pc.block_keys - 1) * block_size + 1
         positions = (starts[:, None] + np.arange(block_size)[None, :]).reshape(-1)
         in_ref = positions <= len(refseq)
-
-        counts = pc.counts_t.reshape(nb * block_size,
-                                     *pc.counts_t.shape[2:])
+        counts = pc.counts_t.reshape(nb * block_size, *pc.counts_t.shape[2:])
         total_support = counts.sum(axis=(1, 2))
         sel = (total_support > 0) & in_ref
         positions = positions[sel]
         counts = counts[sel]
-        if len(positions) == 0:
-            return positions, None
         ref_codes = BASE_TO_ALLELE[refseq[positions - 1]].astype(np.int32)
         cov_alleles = np.array([int(a) for a in COVERAGE_CONTRIBUTING_ALLELES])
         all_cov_by_dir = counts[:, cov_alleles, :].sum(axis=1)
@@ -204,16 +217,16 @@ def _score_host_tuples(support_by_dir, cov_by_dir, params):
 def format_reference_lines(chrom: str, positions: np.ndarray, out: dict,
                            wcfg: VcfWriterConfig,
                            low_depth_filter: int,
-                           qscore_filter: int) -> List[str]:
+                           qscore_filter: int) -> "RefLineBlock":
     """Columnar VCF line formatting for reference loci (uncrushed mode,
     FORMAT GT:GQ:AD:DP:VF[:NL:SB]).
 
     The QUAL/FILTER/INFO/FORMAT tail of each line is a pure function of the
-    unique scoring tuple, so it is rendered once per unique tuple and each line
-    is just chrom + pos + ref_base + the memoized tail."""
-    n = len(positions)
-    if n == 0:
-        return []
+    unique scoring tuple, so it is rendered once per unique tuple in Python,
+    and each line (chrom + pos + ref_base + the memoized tail) is rendered
+    in C++ (io/native.render_reference_lines)."""
+    if len(positions) == 0:
+        return RefLineBlock(b"", np.zeros(1, np.int64))
     total = out["total_coverage"]
     support = out["support"]
     q = out["variant_qscore"]
@@ -264,9 +277,49 @@ def format_reference_lines(chrom: str, positions: np.ndarray, out: dict,
                         f"DP={total[i]}\tGT:GQ:AD:DP:VF\t"
                         f"{gt_s}:{gq[i]}:{support[i]}:{total[i]}:{vf_s}")
 
-    pos_l = positions.tolist()
-    inv_l = inv.tolist()
-    base_l = ref_base.tobytes().decode("latin-1")
-    prefix = chrom + "\t"
-    return [f"{prefix}{p}\t.\t{b}{tails[v]}"
-            for p, b, v in zip(pos_l, base_l, inv_l)]
+    from pisces_tpu_torch.io.native import render_reference_lines
+    blob, off, owner = render_reference_lines(chrom + "\t", positions, inv,
+                                              ref_base, tails)
+    return RefLineBlock(blob, off, owner)
+
+
+class RefLineBlock:
+    """Reference VCF lines as one rendered byte blob + [n+1] line offsets
+    (the C++ render_ref_lines output): runs of lines are written as single
+    buffer slices instead of n Python strings. `blob` is a memoryview into
+    the native render buffer, which `owner` keeps alive for this block and
+    every slice() sharing it."""
+
+    __slots__ = ("blob", "off", "owner")
+
+    def __init__(self, blob, off: np.ndarray, owner=None):
+        self.blob = blob
+        self.off = off
+        self.owner = owner
+
+    def __len__(self) -> int:
+        return len(self.off) - 1
+
+    def line(self, i: int) -> str:
+        """Line i without its trailing newline."""
+        return bytes(self.blob[self.off[i]:self.off[i + 1] - 1]).decode(
+            "latin-1")
+
+    def write_range(self, fh, i: int, j: int) -> None:
+        """Write lines [i, j). Through the text file's byte buffer when it
+        has one (flushed first, so earlier text writes stay in order; VCF
+        bodies are ASCII), else decoded."""
+        if j <= i:
+            return
+        raw = getattr(fh, "buffer", None)
+        if raw is not None:
+            fh.flush()
+            raw.write(self.blob[self.off[i]:self.off[j]])
+        else:
+            fh.write(bytes(self.blob[self.off[i]:self.off[j]]).decode(
+                "latin-1"))
+
+    def slice(self, i: int, j: int) -> "RefLineBlock":
+        base = self.off[i]
+        return RefLineBlock(self.blob[base:self.off[j]],
+                            self.off[i:j + 1] - base, self.owner)

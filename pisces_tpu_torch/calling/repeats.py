@@ -145,28 +145,30 @@ def compute_component_rmxn_lengths(category: AlleleCategory, position: int,
 
 
 def rmxn_should_filter(category: AlleleCategory, position: int, ref_allele: str,
-                       alt_allele: str, frequency: float, refseq_str,
+                       alt_allele: str, frequency: float,
+                       refseq_str: "RefSeqStr",
                        max_len_repeat: Optional[int], min_repetitions: Optional[int],
                        frequency_limit: Optional[float]) -> bool:
-    """RMxNCalculator.ShouldFilter."""
+    """RMxNCalculator.ShouldFilter, by the native scan."""
     if max_len_repeat is None or min_repetitions is None:
         return False
     if frequency_limit is not None and np.float32(frequency) >= np.float32(frequency_limit):
         return False
     if category == AlleleCategory.REFERENCE:
         return False
-    c1, c2 = compute_component_rmxn_lengths(category, position, ref_allele,
-                                            alt_allele, refseq_str, max_len_repeat)
-    return min(c1, c2) >= min_repetitions
+    return refseq_str.rmxn_min_component(
+        category, position, ref_allele, alt_allele,
+        max_len_repeat) >= min_repetitions
 
 
 class RefSeqStr:
     """Lazy string view over a uint8 reference array (slices decode on
-    demand). The native RMxN scan of the reference package is not ported
-    yet; rmxn_should_filter takes the Python component scan."""
+    demand), plus the native RMxN scan (io/_native/rmxn.cpp
+    rmxn_min_component) with the array pointer bound once."""
 
     def __init__(self, refseq: np.ndarray):
         self._a = np.ascontiguousarray(refseq)
+        self._ptr = None  # lazily bound (native function, reference pointer)
 
     def __len__(self):
         return len(self._a)
@@ -175,3 +177,31 @@ class RefSeqStr:
         if isinstance(item, slice):
             return self._a[item].tobytes().decode()
         return chr(self._a[item])
+
+    def rmxn_min_component(self, category: AlleleCategory, position: int,
+                           ref_allele: str, alt_allele: str,
+                           max_unit_len: int) -> int:
+        """min(component1, component2) of compute_component_rmxn_lengths,
+        by the native scan."""
+        if position < 1 or position + len(ref_allele) - 1 > len(self._a):
+            raise ValueError(f"allele at {position} ({ref_allele}) lies "
+                             f"outside the {len(self._a)}-base reference")
+        if self._ptr is None:
+            import ctypes
+            from pisces_tpu_torch.io.native import get_lib
+            fn = get_lib().rmxn_min_component
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            self._ptr = (fn, ctypes.c_void_p(self._a.ctypes.data))
+        fn, ptr = self._ptr
+        if category == AlleleCategory.INSERTION:
+            cat = 1
+        elif category == AlleleCategory.DELETION:
+            cat = 2
+        else:
+            cat = 0
+        return fn(ptr, len(self._a), position, ref_allele.encode(),
+                  len(ref_allele), alt_allele.encode(), len(alt_allele), cat,
+                  max_unit_len)

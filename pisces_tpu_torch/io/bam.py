@@ -5,9 +5,11 @@ with a decode path that emits fixed-dtype numpy columns (positions, flags,
 CIGAR op arrays, seq codes, quals) ready for host->device DMA, instead of
 per-read objects.
 
-This is the pure-Python read flow of the port: whole-file decode and
-per-chromosome extraction. Indexed region fetches (.bai) and tag decoding
-are not ported yet.
+This is the pure-Python read flow of the port (open_bam(prefer_native=
+False)): whole-file decode and per-chromosome extraction. The default
+reader is the C++ one, io/native.NativeBamReader, with the same ReadBatch
+contract; indexed region fetches (.bai) and tag decoding in Python are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -70,6 +72,9 @@ class ReadBatch:
     names: Optional[list] = None       # read names (decoded on request)
     mate_ref_id: Optional[np.ndarray] = None  # int32 [n] next_refID
     mate_pos: Optional[np.ndarray] = None     # int32 [n] 0-based next_pos
+    # True on a batch that io/native.NativeBamReader decoded: its reader's
+    # handle holds the same batch, which the native pileup pass reads
+    _from_native_handle = False
 
     def read_len(self, i: int) -> int:
         return int(self.seq_off[i + 1] - self.seq_off[i])
@@ -237,6 +242,39 @@ class BamReader:
             mate_ref_id=mate_ref_id,
             mate_pos=mate_pos,
         )
+
+
+def subset_batch(batch: ReadBatch, mask: np.ndarray) -> ReadBatch:
+    """New ReadBatch containing only reads where mask is True (re-packs the
+    ragged cigar/seq/qual arrays)."""
+    idx = np.nonzero(mask)[0]
+    clens = (batch.cigar_off[1:] - batch.cigar_off[:-1])[idx]
+    slens = (batch.seq_off[1:] - batch.seq_off[:-1])[idx]
+    cigar_off = np.zeros(len(idx) + 1, dtype=np.int64)
+    np.cumsum(clens, out=cigar_off[1:])
+    seq_off = np.zeros(len(idx) + 1, dtype=np.int64)
+    np.cumsum(slens, out=seq_off[1:])
+    ctake = np.concatenate([np.arange(batch.cigar_off[i], batch.cigar_off[i + 1])
+                            for i in idx]) if len(idx) else np.empty(0, np.int64)
+    stake = np.concatenate([np.arange(batch.seq_off[i], batch.seq_off[i + 1])
+                            for i in idx]) if len(idx) else np.empty(0, np.int64)
+    return ReadBatch(
+        n=len(idx),
+        ref_id=batch.ref_id[idx], pos=batch.pos[idx], mapq=batch.mapq[idx],
+        flag=batch.flag[idx], cigar_off=cigar_off,
+        cigar_ops=batch.cigar_ops[ctake],
+        cigar_lens=batch.cigar_lens[ctake],
+        seq_off=seq_off, seq=batch.seq[stake], qual=batch.qual[stake],
+        end_pos=batch.end_pos[idx],
+        xd_tags=None if batch.xd_tags is None else [batch.xd_tags[i] for i in idx],
+        xn_tags=None if batch.xn_tags is None else [batch.xn_tags[i] for i in idx],
+        extra_tags=(None if batch.extra_tags is None
+                    else [batch.extra_tags[i] for i in idx]),
+        names=None if batch.names is None else [batch.names[i] for i in idx],
+        mate_ref_id=(None if batch.mate_ref_id is None
+                     else batch.mate_ref_id[idx]),
+        mate_pos=None if batch.mate_pos is None else batch.mate_pos[idx],
+    )
 
 
 def filter_batch(batch: ReadBatch, min_map_quality: int = 1,

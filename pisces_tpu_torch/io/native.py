@@ -1,0 +1,550 @@
+"""ctypes binding for the port's C++ host module (libpisces_io).
+
+The sources are io/_native/*.cpp: pisces_io.cpp (BGZF inflate, columnar BAM
+decode with typed tags, the pileup pass with SNV mismatch extraction and the
+gVCF tuple dedup, reference-line rendering) and rmxn.cpp (the RMxN repeat
+scan). get_lib() builds them with g++ at first use into
+pisces_tpu_torch/build/libpisces_io-<hash>.so, named by a hash of the
+sources, the flags and the host CPU, so a stale or foreign build never
+loads. A failed build raises with the compiler's output: open_bam never
+falls back to the Python reader unless the caller asks for it
+(prefer_native=False).
+
+The lazy .bai region reader and the BGZF compressor of pisces_io.cpp are
+not bound yet (ROADMAP Queue 1 item 2).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_native")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+             "-shared")
+LINK_FLAGS = ("-lz", "-lpthread")
+
+# native_pileup calls since the last reset (chip_smoke.py reads it to show
+# the main path took the native flow)
+pileup_calls = 0
+
+
+def reset_pileup_calls() -> None:
+    global pileup_calls
+    pileup_calls = 0
+
+
+class NativeLibrary:
+    """The loaded library, where it was built from, and how."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.lib = ctypes.CDLL(path)   # RTLD_LOCAL: no symbol clashes
+
+
+_native: Optional[NativeLibrary] = None
+
+
+def _sources():
+    return sorted(os.path.join(_NATIVE_DIR, f)
+                  for f in os.listdir(_NATIVE_DIR) if f.endswith(".cpp"))
+
+
+def _host_cpu() -> bytes:
+    """The CPU's flags line: -march=native code is built for this CPU."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return os.uname().machine.encode()
+
+
+def library_path() -> str:
+    digest = hashlib.sha256()
+    for src in _sources():
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
+    digest.update(" ".join((CXX, *CXX_FLAGS, *LINK_FLAGS)).encode())
+    digest.update(_host_cpu())
+    return os.path.join(BUILD_DIR,
+                        f"libpisces_io-{digest.hexdigest()[:12]}.so")
+
+
+def build_native() -> NativeLibrary:
+    """Build (once per source, flag and CPU set) and load the library.
+    Concurrent builds each compile to a temporary file and os.replace it
+    into place; a failed build raises RuntimeError with g++'s output."""
+    global _native
+    if _native is not None:
+        return _native
+    path = library_path()
+    t0 = time.perf_counter()
+    log = ""
+    if not os.path.exists(path):
+        cxx = shutil.which(CXX)
+        if cxx is None:
+            raise RuntimeError(f"{CXX} not found: the port's native host "
+                               "module builds with g++ and zlib at first use")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [cxx, *CXX_FLAGS, *_sources(), "-o", tmp, *LINK_FLAGS],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{CXX} failed building the native host module from "
+                    f"{_NATIVE_DIR}:\n{log}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    _native = NativeLibrary(path, time.perf_counter() - t0, log)
+    return _native
+
+
+def get_lib() -> ctypes.CDLL:
+    """The bound library; builds it at first use and raises if it cannot."""
+    lib = build_native().lib
+    if getattr(lib, "_core_bound", False):
+        return lib
+    lib.bam_open.restype = ctypes.c_void_p
+    lib.bam_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.bam_close.argtypes = [ctypes.c_void_p]
+    lib.bam_n_refs.argtypes = [ctypes.c_void_p]
+    lib.bam_ref_name.restype = ctypes.c_char_p
+    lib.bam_ref_name.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_ref_len.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_n_records.restype = ctypes.c_int64
+    lib.bam_n_records.argtypes = [ctypes.c_void_p]
+    lib.bam_header_text.restype = ctypes.c_void_p
+    lib.bam_header_text.argtypes = [ctypes.c_void_p]
+    lib.bam_header_text_len.restype = ctypes.c_int64
+    lib.bam_header_text_len.argtypes = [ctypes.c_void_p]
+    lib.bam_decode_tags.restype = ctypes.c_int64
+    lib.bam_decode_tags.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
+    for name, ct in [("bam_col_ref_id", ctypes.c_int32),
+                     ("bam_col_pos", ctypes.c_int32),
+                     ("bam_col_end_pos", ctypes.c_int32),
+                     ("bam_col_mapq", ctypes.c_uint8),
+                     ("bam_col_flag", ctypes.c_uint16),
+                     ("bam_col_cigar_off", ctypes.c_int64),
+                     ("bam_col_cigar_ops", ctypes.c_uint8),
+                     ("bam_col_cigar_lens", ctypes.c_int32),
+                     ("bam_col_seq_off", ctypes.c_int64),
+                     ("bam_col_seq", ctypes.c_int8),
+                     ("bam_col_qual", ctypes.c_uint8),
+                     ("bam_col_mate_ref_id", ctypes.c_int32),
+                     ("bam_col_mate_pos", ctypes.c_int32),
+                     ("bam_col_tag_off", ctypes.c_int64),
+                     ("bam_col_xv_val", ctypes.c_int32),
+                     ("bam_col_xw_val", ctypes.c_int32),
+                     ("bam_col_tag_present", ctypes.c_uint8)]:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.POINTER(ct)
+        fn.argtypes = [ctypes.c_void_p]
+    lib.bam_col_tag_off.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_col_tag_blob.restype = ctypes.c_void_p
+    lib.bam_col_tag_blob.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_total_cigar.restype = ctypes.c_int64
+    lib.bam_total_cigar.argtypes = [ctypes.c_void_p]
+    lib.bam_total_bases.restype = ctypes.c_int64
+    lib.bam_total_bases.argtypes = [ctypes.c_void_p]
+    lib._core_bound = True
+    return lib
+
+
+def _as_array(ptr, n, dtype):
+    """Copy a C buffer into a fresh ndarray with one memcpy (the dtype's
+    itemsize matches the pointer's element type by the restypes above)."""
+    if n == 0:
+        return np.empty(0, dtype=dtype)
+    out = np.empty(n, dtype=dtype)
+    ctypes.memmove(out.ctypes.data, ctypes.addressof(ptr.contents), out.nbytes)
+    return out
+
+
+def _as_view(ptr, n, dtype):
+    """Zero-copy read-only ndarray view over a C buffer: nothing is
+    allocated or faulted in. It is valid until the owning handle's next
+    decode or pileup, or its close; callers consume it before either, and
+    copy it before it becomes a tensor (torch.from_numpy would alias memory
+    that C++ overwrites)."""
+    if n == 0:
+        return np.empty(0, dtype=dtype)
+    dtype = np.dtype(dtype)
+    buf = (ctypes.c_char * (n * dtype.itemsize)).from_address(
+        ctypes.addressof(ptr.contents))
+    arr = np.frombuffer(buf, dtype=dtype, count=n)
+    arr.flags.writeable = False
+    return arr
+
+
+def _not_ported_lazy() -> NotImplementedError:
+    return NotImplementedError(
+        "the lazy .bai region reader is not yet ported "
+        "(ROADMAP Queue 1 item 2)")
+
+
+class NativeBamReader:
+    """Native counterpart of io.bam.BamReader with the same fetch()
+    contract: the whole file inflates in C++ threads at open, and each
+    fetch decodes one chromosome (or all) into columnar arrays."""
+
+    def __init__(self, path: str, lazy: bool = False):
+        if lazy:
+            raise _not_ported_lazy()
+        from pisces_tpu_torch.io.bam import BamHeader
+        lib = get_lib()
+        self._lib = lib
+        self._n_decoded = None   # reads of the last fetch, held by the handle
+        self._h = lib.bam_open(path.encode(), min(os.cpu_count() or 1, 16))
+        if not self._h:
+            raise IOError(f"failed to open {path}")
+        n_refs = lib.bam_n_refs(self._h)
+        names = [lib.bam_ref_name(self._h, i).decode() for i in range(n_refs)]
+        lens = [lib.bam_ref_len(self._h, i) for i in range(n_refs)]
+        tlen = lib.bam_header_text_len(self._h)
+        text = ctypes.string_at(lib.bam_header_text(self._h), tlen).decode(
+            "utf-8", errors="replace")
+        self.header = BamHeader(text, names, lens)
+        self.path = path
+
+    @property
+    def n_records(self) -> int:
+        return int(self._lib.bam_n_records(self._h))
+
+    def fetch(self, ref_id: Optional[int] = None, parse_tags: bool = False,
+              as_views: bool = False):
+        """Decode the records of ref_id (None: all). as_views=True serves
+        the base-sized columns (seq/qual/cigar) as zero-copy views into the
+        handle's decode buffers, valid until the next fetch on this handle
+        (native_pileup does not invalidate them); the single-pass caller
+        path opts in, every other caller gets copies."""
+        from pisces_tpu_torch.io.bam import ReadBatch
+        lib = self._lib
+        h = self._h
+        n = int(lib.bam_decode_tags(h, -1 if ref_id is None else ref_id,
+                                    1 if parse_tags else 0))
+        self._n_decoded = n
+        total_cigar = int(lib.bam_total_cigar(h))
+        total_bases = int(lib.bam_total_bases(h))
+        big = _as_view if as_views else _as_array
+        xd_tags = xn_tags = extra_tags = None
+        if parse_tags:
+            xd_tags, xn_tags, extra_tags = self._build_tag_lists(n)
+        batch = ReadBatch(
+            n=n,
+            ref_id=_as_array(lib.bam_col_ref_id(h), n, np.int32),
+            pos=_as_array(lib.bam_col_pos(h), n, np.int32),
+            mapq=_as_array(lib.bam_col_mapq(h), n, np.uint8),
+            flag=_as_array(lib.bam_col_flag(h), n, np.uint16),
+            cigar_off=_as_array(lib.bam_col_cigar_off(h), n + 1, np.int64),
+            cigar_ops=big(lib.bam_col_cigar_ops(h), total_cigar, np.uint8),
+            cigar_lens=big(lib.bam_col_cigar_lens(h), total_cigar, np.int32),
+            seq_off=_as_array(lib.bam_col_seq_off(h), n + 1, np.int64),
+            seq=big(lib.bam_col_seq(h), total_bases, np.int8),
+            qual=big(lib.bam_col_qual(h), total_bases, np.uint8),
+            end_pos=_as_array(lib.bam_col_end_pos(h), n, np.int32),
+            xd_tags=xd_tags,
+            xn_tags=xn_tags,
+            extra_tags=extra_tags,
+            mate_ref_id=_as_array(lib.bam_col_mate_ref_id(h), n, np.int32),
+            mate_pos=_as_array(lib.bam_col_mate_pos(h), n, np.int32),
+        )
+        batch._from_native_handle = True
+        return batch
+
+    def _build_tag_lists(self, n: int):
+        """xd/xn/extra tag lists from the native tag columns (the Python
+        reader's _parse_string_tags contract)."""
+        lib = self._lib
+        if n == 0:
+            return [], [], []
+        present = _as_array(lib.bam_col_tag_present(self._h), n, np.uint8)
+        offs = {}
+        blobs = {}
+        for slot, name in enumerate(("xd", "xn", "xr", "xu", "xw_s")):
+            o = _as_array(lib.bam_col_tag_off(self._h, slot), n + 1, np.int64)
+            offs[name] = o
+            blobs[name] = (ctypes.string_at(
+                lib.bam_col_tag_blob(self._h, slot), int(o[-1]))
+                if o[-1] else b"")
+        xv = _as_array(lib.bam_col_xv_val(self._h), n, np.int32)
+        xw = _as_array(lib.bam_col_xw_val(self._h), n, np.int32)
+
+        def s(name, i):
+            o = offs[name]
+            return blobs[name][o[i]:o[i + 1]].decode("ascii",
+                                                     errors="replace")
+
+        xd_tags, xn_tags, extra = [], [], []
+        for i, p in enumerate(present.tolist()):
+            tags = {}
+            xd = s("xd", i) if p & 1 else None
+            xn = s("xn", i) if p & 2 else None
+            if xd is not None:
+                tags["XD"] = xd
+            if xn is not None:
+                tags["XN"] = xn
+            if p & 4:
+                tags["XR"] = s("xr", i)
+            if p & 8:
+                tags["XU"] = s("xu", i)
+            if p & 16:
+                tags["XV"] = int(xv[i])
+            if p & 32:
+                tags["XW"] = int(xw[i])
+            if p & 64:  # Z-typed XW overrides an int XW (parser order)
+                tags["XW"] = s("xw_s", i)
+            xd_tags.append(xd)
+            xn_tags.append(xn)
+            extra.append(tags)
+        return xd_tags, xn_tags, extra
+
+    def fetch_region(self, ref_id: int, beg0: int, end0: int,
+                     parse_tags: bool = False):
+        """Reads of ref_id overlapping [beg0, end0) (0-based half-open),
+        decoded from the whole chromosome and masked (copies)."""
+        from pisces_tpu_torch.io.bam import subset_batch
+        batch = self.fetch(ref_id, parse_tags)
+        mask = (batch.pos < end0) & (batch.end_pos >= beg0)
+        return subset_batch(batch, mask)
+
+    def close(self):
+        if self._h:
+            self._lib.bam_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def open_bam(path: str, prefer_native: bool = True, lazy: bool = False):
+    """The native reader (the default; raises if the library cannot be
+    built or the file cannot be opened), or with prefer_native=False the
+    pure-Python one."""
+    if lazy:
+        raise _not_ported_lazy()
+    if prefer_native:
+        return NativeBamReader(path)
+    from pisces_tpu_torch.io.bam import BamReader
+    return BamReader(path)
+
+
+def _bind_pileup(lib):
+    if getattr(lib, "_pileup_bound", False):
+        return
+    lib.bam_pileup_mm.restype = ctypes.c_int64
+    lib.bam_pileup_mm.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int8),
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int]
+    lib.pileup_n_mismatches.restype = ctypes.c_int64
+    lib.pileup_n_mismatches.argtypes = [ctypes.c_void_p]
+    lib.pileup_has_pos_tuples.restype = ctypes.c_int64
+    lib.pileup_has_pos_tuples.argtypes = [ctypes.c_void_p]
+    lib.pileup_gvcf_unique.restype = ctypes.c_int64
+    lib.pileup_gvcf_unique.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int64]
+    lib.pileup_n_uniq.restype = ctypes.c_int64
+    lib.pileup_n_uniq.argtypes = [ctypes.c_void_p]
+    for name, ct in [("pileup_mm_gpos", ctypes.c_int64),
+                     ("pileup_mm_alt", ctypes.c_int8),
+                     ("pileup_mm_dir", ctypes.c_int8),
+                     ("pileup_mm_flags", ctypes.c_int8),
+                     ("pileup_block_keys", ctypes.c_int64),
+                     ("pileup_counts_t", ctypes.c_int32),
+                     ("pileup_qual_t", ctypes.c_double),
+                     ("pileup_anchored_counts", ctypes.c_int32),
+                     ("pileup_anchored_quals", ctypes.c_double),
+                     ("pileup_pos_tuples", ctypes.c_int32),
+                     ("pileup_sel_positions", ctypes.c_int64),
+                     ("pileup_uniq_tuples", ctypes.c_int32),
+                     ("pileup_uniq_inv", ctypes.c_int32)]:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.POINTER(ct)
+        fn.argtypes = [ctypes.c_void_p]
+    lib._pileup_bound = True
+
+
+def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
+                  anchor_size: int,
+                  anchored_positions: Optional[np.ndarray] = None,
+                  ref_codes: Optional[np.ndarray] = None,
+                  track_open_ended: bool = True):
+    """Run the C++ pileup pass, in REGION_SIZE blocks, over the reader's
+    last fetched batch (`keep` is its read mask): the
+    read events, their count and quality-error (f64) scatter, and, given
+    ref_codes, the per-position scoring tuples, their dedup to unique gVCF
+    tuples, and the SNV mismatch events. Returns (PileupCounts, mismatches)
+    where mismatches is None without ref_codes, else (gpos, alt, dir, flags)
+    for SNV candidate aggregation.
+
+    The dense tensors, tuples and mismatches are views into the handle's
+    buffers (tens of MB at panel depth): consume them before the handle's
+    next fetch or pileup. The gVCF positions are copied, since the
+    reference lines keep them until they are written."""
+    global pileup_calls
+    from pisces_tpu_torch.pileup.counts import PileupCounts
+    from pisces_tpu_torch.domain.types import (
+        NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES, num_anchor_indexes,
+    )
+    from pisces_tpu_torch.options import REGION_SIZE as block_size
+    if reader._n_decoded is None or len(keep) != reader._n_decoded:
+        raise ValueError(f"keep has {len(keep)} entries; the reader's last "
+                         f"fetch decoded {reader._n_decoded} reads")
+    lib = reader._lib
+    _bind_pileup(lib)
+    pileup_calls += 1
+    h = reader._h
+    keep_u8 = np.ascontiguousarray(keep, dtype=np.uint8)
+    if anchored_positions is None or len(anchored_positions) == 0:
+        ap = np.empty(0, dtype=np.int64)
+    else:
+        ap = np.unique(np.asarray(anchored_positions, dtype=np.int64))
+    rc = (np.ascontiguousarray(ref_codes, dtype=np.int8)
+          if ref_codes is not None else None)
+    nb = lib.bam_pileup_mm(
+        h, keep_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        min_bq, anchor_size, block_size,
+        ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(ap), None,
+        (rc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+         if rc is not None else None),
+        0 if rc is None else len(rc), 1 if track_open_ended else 0)
+    k = num_anchor_indexes(anchor_size)
+    shape_t = (nb, block_size, NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES)
+    block_keys = _as_array(lib.pileup_block_keys(h), nb, np.int64)
+    n_t = nb * block_size * NUM_ALLELE_TYPES * NUM_DIRECTION_TYPES
+    counts_t = _as_view(lib.pileup_counts_t(h), n_t, np.int32).reshape(shape_t)
+    qual_t = _as_view(lib.pileup_qual_t(h), n_t, np.float64).reshape(shape_t)
+    shape_a = (len(ap), NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES, k)
+    n_a = int(np.prod(shape_a))
+    ac = _as_array(lib.pileup_anchored_counts(h), n_a, np.int32)\
+        .reshape(shape_a)
+    aq = _as_array(lib.pileup_anchored_quals(h), n_a, np.float64)\
+        .reshape(shape_a)
+    pc = PileupCounts(block_keys, block_size, anchor_size, counts_t, qual_t,
+                      ap, ac, aq)
+    if rc is None:
+        return pc, None
+    if lib.pileup_has_pos_tuples(h):
+        pc.pos_tuples = _as_view(lib.pileup_pos_tuples(h),
+                                 nb * block_size * 8,
+                                 np.int32).reshape(nb * block_size, 8)
+        # the C++ dedup of covered in-reference loci to unique scoring
+        # tuples, in first-occurrence order (fast_gvcf skips its np.unique)
+        # (never -1 here: that means no tuples)
+        n_sel = lib.pileup_gvcf_unique(h, block_size, len(rc))
+        u = int(lib.pileup_n_uniq(h))
+        pc.gvcf_unique = (
+            _as_array(lib.pileup_sel_positions(h), n_sel, np.int64),
+            _as_view(lib.pileup_uniq_tuples(h), u * 6,
+                     np.int32).reshape(u, 6).astype(np.int64),
+            _as_view(lib.pileup_uniq_inv(h), n_sel, np.int32))
+    n_mm = int(lib.pileup_n_mismatches(h))
+    mismatches = (_as_view(lib.pileup_mm_gpos(h), n_mm, np.int64),
+                  _as_view(lib.pileup_mm_alt(h), n_mm, np.int8),
+                  _as_view(lib.pileup_mm_dir(h), n_mm, np.int8),
+                  _as_view(lib.pileup_mm_flags(h), n_mm, np.int8))
+    return pc, mismatches
+
+
+def _bind_render(lib) -> None:
+    if getattr(lib, "_render_bound", False):
+        return
+    lib.render_ref_lines.restype = ctypes.c_void_p
+    lib.render_ref_lines.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.rl_blob_len.restype = ctypes.c_int64
+    lib.rl_blob_len.argtypes = [ctypes.c_void_p]
+    lib.rl_blob.restype = ctypes.c_void_p
+    lib.rl_blob.argtypes = [ctypes.c_void_p]
+    lib.rl_line_off.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.rl_line_off.argtypes = [ctypes.c_void_p]
+    lib.rl_free.argtypes = [ctypes.c_void_p]
+    lib._render_bound = True
+
+
+class _RenderedBlobOwner:
+    """Owns a render_ref_lines result: exposes the blob as a zero-copy
+    memoryview and frees the native buffer when the last Python reference
+    (every RefLineBlock slice sharing it included) is dropped."""
+
+    __slots__ = ("_lib", "_h", "mv", "off")
+
+    def __init__(self, lib, h, n: int):
+        self._lib = lib
+        self._h = h
+        blob_len = lib.rl_blob_len(h)
+        buf = (ctypes.c_char * blob_len).from_address(lib.rl_blob(h))
+        self.mv = memoryview(buf).cast("B")
+        self.off = _as_array(lib.rl_line_off(h), n + 1, np.int64)
+
+    def __del__(self):
+        try:
+            self.mv.release()
+        except BufferError:
+            # a sub-view of the blob still lives: freeing the buffer now
+            # would leave it dangling, so leak it instead (RefLineBlock
+            # always holds the owner, so in-repo consumers never get here)
+            return
+        except Exception:
+            pass
+        self._lib.rl_free(self._h)
+
+
+def render_reference_lines(prefix: str, positions: np.ndarray,
+                           inv: np.ndarray, bases: np.ndarray, tails: list):
+    """C++ rendering of per-locus gVCF reference lines
+    "<prefix><pos>\\t.\\t<base><tails[inv]>\\n": returns (blob memoryview,
+    [n+1] line offsets, owner), zero-copy into the C++ buffer, which lives
+    until `owner` is garbage-collected."""
+    n = len(positions)
+    if len(inv) != n or len(bases) != n:
+        raise ValueError("positions, inv and bases must have one entry a line")
+    if n and (int(np.min(inv)) < 0 or int(np.max(inv)) >= len(tails)):
+        raise ValueError(f"inv must index the {len(tails)} tails")
+    lib = get_lib()
+    _bind_render(lib)
+    pos = np.ascontiguousarray(positions, dtype=np.int64)
+    inv_c = np.ascontiguousarray(inv, dtype=np.int32)
+    bases_c = np.ascontiguousarray(bases, dtype=np.uint8)
+    tail_bytes = [t.encode("latin-1") for t in tails]
+    tail_off = np.zeros(len(tails) + 1, np.int64)
+    np.cumsum([len(t) for t in tail_bytes], out=tail_off[1:])
+    p = prefix.encode("latin-1")
+    h = lib.render_ref_lines(
+        p, len(p), n, pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        inv_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        bases_c.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        b"".join(tail_bytes),
+        tail_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    owner = _RenderedBlobOwner(lib, h, n)
+    return owner.mv, owner.off, owner

@@ -254,3 +254,16 @@ def find_indel_candidates(
             else:
                 agg[key] = c
     return list(agg.values())
+
+
+def aggregate_native_mismatches(chrom: str, refseq: np.ndarray, gpos, alt,
+                                dirs, flags) -> List[Candidate]:
+    """Aggregate the C++ pileup pass's SNV mismatch events
+    (io/native.native_pileup with reference codes) into Candidates."""
+    if len(gpos) == 0:
+        return []
+    open_right = (flags & 1) != 0
+    open_left = (flags & 2) != 0
+    well_anchored = (flags & 4) != 0
+    return _aggregate_snv_events(chrom, refseq, gpos, alt, dirs,
+                                 open_left, open_right, well_anchored)

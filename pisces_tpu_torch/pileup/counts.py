@@ -12,8 +12,9 @@ so this build keeps two structures:
   - anchor-resolved rows [K, 6, 3, 2A+1] only for the sparse positions named
     by the candidate set (spanning coverage windows).
 
-Both are built with one scatter-add on a torch device (index_add_, the
-default) or on the host in numpy.
+The default read flow builds both in the C++ pileup pass
+(io/native.native_pileup). The Python flow builds them from read events with
+one scatter-add on a torch device (index_add_) or on the host in numpy.
 """
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ class PileupCounts:
     anchored_positions: np.ndarray  # int64 [K] sorted 1-based positions
     anchored_counts: np.ndarray     # int32 [K, 6, 3, 2A+1]
     anchored_quals: np.ndarray      # float64 [K, 6, 3, 2A+1]
+    # native pileup only (io/native.native_pileup with reference codes):
+    # int32 [NB*B, 8] per-position scoring tuples
+    # [sup_f, sup_r, sup_s, cov_f, cov_r, cov_s, n_total, 0], and the
+    # covered in-reference loci deduped to unique tuples: (positions int64
+    # [L], unique tuples int64 [U, 6] in first-occurrence order, inverse
+    # index int32 [L])
+    pos_tuples: Optional[np.ndarray] = None
+    gvcf_unique: Optional[tuple] = None
     # lazy {block_key: slot} / {position: row} maps backing the scalar
     # pos_index / anchored_row fast paths
     _slot_map: Optional[dict] = None

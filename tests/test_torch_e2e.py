@@ -5,10 +5,12 @@ Both packages call the same synthetic messy BAM (written by the port's own
 generator, which makes the reference bench's workload). Both dispatch
 thresholds are forced to 1, so every unique reference tuple and every
 candidate batch goes through the device code of each package: the tuple
-kernel's plain version, torch_scoring and the torch count build in the port
-(on the CPU); the XLA functions and the JAX scatter in the reference
-package. The reference package reads through its pure-Python BamReader, the
-flow this slice ports.
+kernel's plain version and torch_scoring in the port (on the CPU), the XLA
+functions in the reference package. The runs are parametrized over the read
+flow, the same in both packages: "native", each package's default open_bam
+(the C++ decode and pileup pass), and "python", open_bam(prefer_native=False)
+in both (the pure-Python reader, read events and the count build: torch in
+the port, the JAX scatter in the reference package).
 
 VCF and gVCF bodies must agree on every field except the reference-line
 strand bias. The port takes it from the tuple kernel's fixed 64-term series
@@ -40,10 +42,11 @@ import conftest  # noqa: F401  (keeps JAX on the CPU)
 import pisces_tpu.calling.fast_gvcf as jax_fast_gvcf
 import pisces_tpu.io.native as jax_native
 from pisces_tpu.apps.pisces import main as jax_main
-from pisces_tpu.io.bam import BamReader as JaxBamReader
 import numpy as np
 
+import pisces_tpu_torch.apps.pisces as torch_app
 import pisces_tpu_torch.calling.fast_gvcf as torch_fast_gvcf
+import pisces_tpu_torch.io.native as torch_native
 from pisces_tpu_torch import entry as torch_entry
 from pisces_tpu_torch.apps.pisces import main as torch_main
 from pisces_tpu_torch.synthetic import write_synthetic_workload
@@ -67,9 +70,37 @@ def device_everywhere(monkeypatch):
     monkeypatch.setenv("PISCES_DEVICE_BATCH_THRESHOLD", "1")
     monkeypatch.setattr(jax_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     monkeypatch.setattr(torch_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
-    monkeypatch.setattr(
-        jax_native, "open_bam",
-        lambda path, prefer_native=True, lazy=False: JaxBamReader(path))
+
+
+@pytest.fixture(params=["native", "python"])
+def flow(request, monkeypatch):
+    """Both packages on one read flow: "native" leaves each package's
+    default open_bam; "python" opens with prefer_native=False in both."""
+    if request.param == "python":
+        jax_open = jax_native.open_bam
+        monkeypatch.setattr(
+            jax_native, "open_bam",
+            lambda path, prefer_native=True, lazy=False:
+            jax_open(path, prefer_native=False, lazy=lazy))
+        monkeypatch.setattr(
+            torch_app, "open_bam",
+            lambda path: torch_native.open_bam(path, prefer_native=False))
+    return request.param
+
+
+@pytest.fixture
+def flow_counts(monkeypatch):
+    """Calls of the port's native pileup pass and of its Python event
+    build during a test."""
+    calls = {"native_pileup": 0, "build_base_events": 0}
+    for name in calls:
+        fn = getattr(torch_app, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(torch_app, name, counted)
+    return calls
 
 
 def _run(main, bam, genome, out, gvcf, extra=()):
@@ -103,37 +134,59 @@ def _assert_same_calls(port, ref, host):
 
 
 @pytest.mark.parametrize("gvcf", ["true", "false"])
-def test_torch_backend_matches_jax(workload, device_everywhere, gvcf):
+def test_torch_backend_matches_jax(workload, device_everywhere, flow, gvcf):
     tmp, bam, genome, _ = workload
-    port = _run(torch_main, bam, genome, os.path.join(tmp, f"t{gvcf}"), gvcf,
+    tag = f"{flow}{gvcf}"
+    port = _run(torch_main, bam, genome, os.path.join(tmp, f"t{tag}"), gvcf,
                 ["-backend", "torch", "-device", "cpu"])
-    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"j{gvcf}"), gvcf,
+    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"j{tag}"), gvcf,
                ["-backend", "jax"])
-    host = _run(jax_main, bam, genome, os.path.join(tmp, f"jh{gvcf}"), gvcf,
+    host = _run(jax_main, bam, genome, os.path.join(tmp, f"jh{tag}"), gvcf,
                 ["-backend", "numpy"])
     _assert_same_calls(port, ref, host)
     if gvcf == "false":
         assert port == ref   # variant lines carry host-f64 SB on both sides
 
 
+@pytest.mark.parametrize("with_intervals", [False, True])
 @pytest.mark.parametrize("gvcf", ["true", "false"])
-def test_numpy_backends_byte_equal(workload, gvcf):
-    tmp, bam, genome, _ = workload
-    port = _run(torch_main, bam, genome, os.path.join(tmp, f"tn{gvcf}"),
-                gvcf, ["-backend", "numpy", "-device", "cpu"])
-    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"jn{gvcf}"), gvcf,
-               ["-backend", "numpy"])
+def test_numpy_backends_byte_equal(workload, flow, gvcf, with_intervals):
+    tmp, bam, genome, intervals = workload
+    iv = ["-IntervalPaths", intervals] if with_intervals else []
+    tag = f"{flow}{gvcf}{int(with_intervals)}"
+    port = _run(torch_main, bam, genome, os.path.join(tmp, f"tn{tag}"),
+                gvcf, ["-backend", "numpy", "-device", "cpu", *iv])
+    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"jn{tag}"),
+               gvcf, ["-backend", "numpy", *iv])
     assert port == ref
 
 
-def test_intervals_match_jax(workload, device_everywhere):
+@pytest.mark.parametrize("gvcf", ["true", "false"])
+@pytest.mark.parametrize("with_intervals", [False, True])
+def test_native_flow_byte_equal_to_python_flow(workload, monkeypatch,
+                                               with_intervals, gvcf):
+    """The port's native flow against its own Python flow, -backend
+    numpy: every VCF and gVCF body byte-equal."""
     tmp, bam, genome, intervals = workload
-    port = _run(torch_main, bam, genome, os.path.join(tmp, "ti"), "true",
-                ["-device", "cpu", "-IntervalPaths", intervals])
-    ref = _run(jax_main, bam, genome, os.path.join(tmp, "ji"), "true",
+    iv = ["-IntervalPaths", intervals] if with_intervals else []
+    args = [gvcf, ["-backend", "numpy", "-device", "cpu", *iv]]
+    tag = f"{gvcf}{int(with_intervals)}"
+    nat = _run(torch_main, bam, genome, os.path.join(tmp, f"fn{tag}"), *args)
+    monkeypatch.setattr(
+        torch_app, "open_bam",
+        lambda path: torch_native.open_bam(path, prefer_native=False))
+    py = _run(torch_main, bam, genome, os.path.join(tmp, f"fp{tag}"), *args)
+    assert nat == py
+
+
+def test_intervals_match_jax(workload, device_everywhere, flow):
+    tmp, bam, genome, intervals = workload
+    port = _run(torch_main, bam, genome, os.path.join(tmp, f"ti{flow}"),
+                "true", ["-device", "cpu", "-IntervalPaths", intervals])
+    ref = _run(jax_main, bam, genome, os.path.join(tmp, f"ji{flow}"), "true",
                ["-IntervalPaths", intervals])
-    host = _run(jax_main, bam, genome, os.path.join(tmp, "jhi"), "true",
-                ["-backend", "numpy", "-IntervalPaths", intervals])
+    host = _run(jax_main, bam, genome, os.path.join(tmp, f"jhi{flow}"),
+                "true", ["-backend", "numpy", "-IntervalPaths", intervals])
     _assert_same_calls(port, ref, host)
     # interval padding: every interval position has a line, chr2 included
     assert sum(ln.startswith("chr1\t") for ln in port) == 2701 + 51
@@ -149,12 +202,13 @@ def reference_runs():
 @pytest.mark.parametrize("with_intervals", [False, True])
 @pytest.mark.parametrize("mesh", ["2", "8"])
 def test_mesh_matches_jax_mesh_and_single_device(workload, device_everywhere,
-                                                 reference_runs, monkeypatch,
-                                                 mesh, with_intervals):
+                                                 flow, reference_runs,
+                                                 monkeypatch, mesh,
+                                                 with_intervals):
     from pisces_tpu_torch.parallel import sharding
     tmp, bam, genome, intervals = workload
     iv = ["-IntervalPaths", intervals] if with_intervals else []
-    tag = f"m{mesh}{'i' if with_intervals else ''}"
+    tag = f"m{mesh}{'i' if with_intervals else ''}{flow}"
     calls = []
     for name in ("sharded_score_reference_positions",
                  "sharded_score_snv_tuples"):
@@ -171,14 +225,45 @@ def test_mesh_matches_jax_mesh_and_single_device(workload, device_everywhere,
     for name, main, extra in (
             ("host", jax_main, ["-backend", "numpy"]),
             ("single", torch_main, ["-device", "cpu"])):
-        key = (name, with_intervals)
+        key = (name, with_intervals, flow)
         if key not in reference_runs:
             reference_runs[key] = _run(
                 main, bam, genome,
-                os.path.join(tmp, f"{name}{int(with_intervals)}"), "true",
-                [*extra, *iv])
-    _assert_same_calls(port, ref, reference_runs[("host", with_intervals)])
-    assert port == reference_runs[("single", with_intervals)]
+                os.path.join(tmp, f"{name}{int(with_intervals)}{flow}"),
+                "true", [*extra, *iv])
+    _assert_same_calls(port, ref,
+                       reference_runs[("host", with_intervals, flow)])
+    assert port == reference_runs[("single", with_intervals, flow)]
+
+
+def test_default_run_takes_the_native_flow(workload, flow_counts):
+    tmp, bam, genome, _ = workload
+    port = _run(torch_main, bam, genome, os.path.join(tmp, "dflt"), "true",
+                ["-device", "cpu"])
+    assert len(port) > 0
+    # once per chromosome, and no Python events
+    assert flow_counts == {"native_pileup": 2, "build_base_events": 0}
+
+
+def test_mesh_takes_python_events_on_the_native_batch(workload, flow_counts,
+                                                      monkeypatch):
+    tmp, bam, genome, _ = workload
+    batches = []
+    events = torch_app.build_base_events
+
+    def recording(batch, *a, **k):
+        batches.append(batch)
+        return events(batch, *a, **k)
+
+    monkeypatch.setattr(torch_app, "build_base_events", recording)
+    mesh = _run(torch_main, bam, genome, os.path.join(tmp, "mesh2"), "true",
+                ["-device", "cpu", "-MeshDevices", "2"])
+    assert flow_counts == {"native_pileup": 0, "build_base_events": 2}
+    assert all(b._from_native_handle for b in batches) and len(batches) == 2
+    single = _run(torch_main, bam, genome, os.path.join(tmp, "mesh1"),
+                  "true", ["-device", "cpu"])
+    assert flow_counts["native_pileup"] == 2
+    assert mesh == single
 
 
 def test_entry_matches_jax_entry():
