@@ -40,6 +40,29 @@ its result lines:
      handed it, with the phase-2 tolerance;
   5. entry points — entry() on the card against the plain version, and
      dryrun_multichip over every card;
+  A. windowed panel — phase 3's workload (written with its .bai) through
+     the CLI with -WindowSize 100000 (serial windows), then through
+     call_chromosome_windowed with two pipeline threads, each window on
+     its own lazy reader: counts set to 0 before each run and read after;
+     the native pileup must run once a window and the tuple kernel launch
+     once a window, and each VCF body must be byte-equal to phase 3's
+     whole-chromosome body;
+  B. schedulers — a 4 x 100 kb, 3M-read workload (750x) through the CLI
+     serially, with -MaxThreads 4, with -MaxThreads 4 -ThreadByChr true
+     and with -MultiProcess true -MaxThreads 4 (spawned children, which
+     fail rather than fall back): each in-process run must launch the
+     tuple kernel once a chromosome from the pool's threads, counted
+     exactly, and every body must be byte-equal to the serial one;
+  C. WGS streaming — the reference bench's WGS workload
+     (generate_wgs_workload) cut to one 11 Mb chromosome and 3.3M messy
+     reads (30x, six windows; the bench's is 33 Mb and 10M reads),
+     generated in a child process, then the CLI as a child process
+     with -gVCF true -WindowSize 2000000 on the card and again with
+     -backend numpy: the native pileup must run once a window, and the two
+     bodies must agree (reference-line SB within the phase-2 tolerance);
+     each run's wall, reads/s, windows, peak RSS (the child's rusage,
+     beside that of a child that only opens the CUDA context), stages,
+     counters and device watermark (-metricsjson) are logged;
   6. timing — each kernel on the main path's tuples, 200,000 random tuples
      and each mesh's first tile: the wrapper's time (CUDA events over 50
      back-to-back calls), the kernel's device-only time (torch.profiler's
@@ -49,10 +72,11 @@ its result lines:
      launcher's time alone, the plain version's, and the bound (the bytes
      each call must move and the f32 operations its data needs, each series
      counted to its exact exit);
-  7. report — the kernels line (JSON), end-to-end rates and stages of both
-     flows, the mesh phase's wall and stages, peak device memory (main
-     path), the card's name and power limit,
-     and the contract line {"ok": true, "device": {...}} last.
+  7. report — the kernels line (JSON; each kernel's launches on every path
+     in "launches_by_path"), end-to-end rates and stages of both flows, the
+     mesh phase's wall and stages, peak device memory (main path), the
+     card's name and power limit, and the contract line
+     {"ok": true, "device": {...}} last.
 
 It needs the pisces_tpu_torch package beside it and a CUDA card; it fails
 without either.
@@ -81,6 +105,22 @@ SEED = 0
 # against a 32-locus tile), and a large random batch
 SIZES = (1, 7, 511, 513, 6_119, 50_176, 200_000, 200_192)
 TIMING_ITERS = 50
+# phase A: two 100 kb windows of the main path's chromosome, each above
+# the 4096-tuple device threshold (about 5,000 unique tuples a window)
+WINDOW = 100_000
+# phase B: four chromosomes at the main path's depth, one a worker thread
+SCHED_CHROMS = 4
+SCHED_CHROM_LEN = 100_000
+SCHED_READS = 3_000_000
+SCHED_RUNS = ((), ("-MaxThreads", "4"),
+              ("-MaxThreads", "4", "-ThreadByChr", "true"),
+              ("-MultiProcess", "true", "-MaxThreads", "4"))
+# phase C: the reference bench's WGS stage (bench.py "wgs", 10M reads over
+# 33 Mb in 2 Mb windows) cut to a third of its length and reads, so the
+# script fits its time: 30x and six windows kept
+WGS_READS = 3_300_000
+WGS_LEN = 11_000_000
+WGS_WINDOW = 2_000_000
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): f32 outside the tensor cores, and HBM3 bandwidth
@@ -426,7 +466,7 @@ def check_loci_kernel(device):
 # The main path
 # ---------------------------------------------------------------------------
 
-def _run_cli(app, bam, genome, out, backend):
+def _run_cli(app, bam, genome, out, backend, extra=()):
     """One CLI run; returns (wall seconds, stage snapshot, VCF body)."""
     import torch
     from pisces_tpu_torch.entry import vcf_body
@@ -434,7 +474,7 @@ def _run_cli(app, bam, genome, out, backend):
     metrics.reset()
     t0 = time.perf_counter()
     rc = app.main(["-bam", bam, "-g", genome, "-o", out, "-gVCF", "true",
-                   "-backend", backend, "-device", "cuda"])
+                   "-backend", backend, "-device", "cuda", *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
@@ -457,7 +497,7 @@ def run_main_path(work: str, device):
 
     t0 = time.perf_counter()
     bam, genome = write_synthetic_workload(work, 1, CHROM_LEN, N_READS,
-                                           seed=SEED, messy=True)
+                                           seed=SEED, messy=True, index=True)
     log(f"workload: 1 x {CHROM_LEN:,} bp, {N_READS:,} reads "
         f"({N_READS * 100 / CHROM_LEN:.0f}x), written in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -555,7 +595,7 @@ def run_main_path(work: str, device):
         "wall_s": wall, "host_wall_s": host_wall, "py_wall_s": py_wall,
         "lines": n_lines, "peak_bytes": peak, "stages": stages,
         "host_stages": host_stages, "py_stages": py_stages,
-        "pileups": pileups, "tuples": main_tuples}
+        "pileups": pileups, "tuples": main_tuples, "body": port}
 
 
 # ---------------------------------------------------------------------------
@@ -668,6 +708,224 @@ def run_entry_points(device) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phases A-C: windows, schedulers, WGS streaming
+# ---------------------------------------------------------------------------
+
+def _counted(what: str, pileups: int, launches: int, want: int) -> None:
+    """Raise unless a run ran the native pileup and launched score_tuples
+    `want` times each."""
+    if pileups != want or launches != want:
+        raise AssertionError(f"{what}: native_pileup ran {pileups} and "
+                             f"score_tuples launched {launches} times; "
+                             f"want {want} each")
+
+
+def run_windowed_path(work: str, device, whole_body):
+    """Phase A on phase 3's indexed workload. Returns each run's record."""
+    import torch
+    import pisces_tpu_torch.apps.pisces as app
+    from pisces_tpu_torch.entry import vcf_body
+    from pisces_tpu_torch.io import native
+    from pisces_tpu_torch.io.fasta import Genome
+    from pisces_tpu_torch.io.vcf_write import VcfWriter, VcfWriterConfig
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.options import PiscesApplicationOptions
+
+    bam = os.path.join(work, "b.bam")
+    genome = os.path.join(work, "genome")
+    windows = -(-CHROM_LEN // WINDOW)
+    runs = []
+
+    # serial windows, through the CLI
+    native.reset_pileup_calls()
+    K.reset_launch_counts()
+    wall, stages, body = _run_cli(app, bam, genome,
+                                  os.path.join(work, "windowed"), "torch",
+                                  ("-WindowSize", str(WINDOW)))
+    runs.append({"run": "windowed serial", "wall_s": wall, "stages": stages,
+                 "pileups": native.pileup_calls,
+                 "launches": K.launch_counts["score_tuples"]})
+
+    # pipelined windows, two threads with a lazy reader each
+    o = PiscesApplicationOptions()
+    o.window_size = WINDOW
+    o.validate()
+    g = Genome(genome)
+    out = os.path.join(work, "pipelined.genome.vcf")
+    native.reset_pileup_calls()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    reader = native.open_bam(bam, lazy=True)
+    with VcfWriter(out, VcfWriterConfig(o), g.directory, "b.bam",
+                   g.chromosome_lengths, "") as writer:
+        writer.write_header()
+        for (alleles, ref_lines), _w0, _w1 in app.call_chromosome_windowed(
+                o, g.get_chr_reference("chr1"), reader, 0, None, device,
+                reader_factory=lambda: native.open_bam(bam, lazy=True),
+                pipeline_threads=2):
+            app.write_spliced(writer, alleles, ref_lines)
+    torch.cuda.synchronize()
+    runs.append({"run": "windowed pipelined (2 threads)",
+                 "wall_s": time.perf_counter() - t0,
+                 "pileups": native.pileup_calls,
+                 "launches": K.launch_counts["score_tuples"]})
+
+    for r, got in zip(runs, (body, vcf_body(out))):
+        _counted(r["run"], r["pileups"], r["launches"], windows)
+        if got != whole_body:
+            raise AssertionError(f"{r['run']}: VCF body differs from the "
+                                 "whole-chromosome body")
+        log(f"{r['run']}: {windows} windows of {WINDOW:,} bp, "
+            f"native_pileup {r['pileups']} and score_tuples "
+            f"{r['launches']} time(s), {r['wall_s']:.2f} s "
+            f"({N_READS / r['wall_s']:,.0f} reads/s); VCF body byte-equal "
+            "to the whole-chromosome body")
+    return runs
+
+
+def run_scheduler_paths(work: str):
+    """Phase B. Returns each run's record."""
+    import pisces_tpu_torch.apps.pisces as app
+    from pisces_tpu_torch.io import native
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.synthetic import write_synthetic_workload
+
+    t0 = time.perf_counter()
+    bam, genome = write_synthetic_workload(work, SCHED_CHROMS,
+                                           SCHED_CHROM_LEN, SCHED_READS,
+                                           seed=SEED, messy=True)
+    log(f"scheduler workload: {SCHED_CHROMS} x {SCHED_CHROM_LEN:,} bp, "
+        f"{SCHED_READS:,} reads "
+        f"({SCHED_READS * 100 / SCHED_CHROMS / SCHED_CHROM_LEN:.0f}x), "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    runs, serial = [], None
+    for i, flags in enumerate(SCHED_RUNS):
+        name = "scheduler " + (" ".join(flags) or "serial")
+        native.reset_pileup_calls()
+        K.reset_launch_counts()
+        wall, stages, body = _run_cli(app, bam, genome,
+                                      os.path.join(work, f"run{i}"),
+                                      "torch", flags)
+        r = {"run": name, "wall_s": wall, "stages": stages,
+             "pileups": native.pileup_calls,
+             "launches": K.launch_counts["score_tuples"]}
+        if "-MultiProcess" in flags:
+            # the children's pileups and launches are their own
+            if r["pileups"] or r["launches"]:
+                raise AssertionError("-MultiProcess: the parent ran the "
+                                     "chromosomes itself")
+        else:
+            _counted(name, r["pileups"], r["launches"], SCHED_CHROMS)
+        if serial is None:
+            serial = body
+        elif body != serial:
+            raise AssertionError(f"{name}: VCF body differs from the "
+                                 "serial run's")
+        runs.append(r)
+        log(f"{name}: {wall:.2f} s "
+            f"({SCHED_READS / wall:,.0f} reads/s), native_pileup "
+            f"{r['pileups']} and score_tuples {r['launches']} time(s) in "
+            f"this process; {len(body):,} lines"
+            + ("" if i == 0 else ", byte-equal to the serial run"))
+    return runs
+
+
+# runs argv[1:] and prints its peak RSS from its rusage (wait4). A child's
+# ru_maxrss starts from the RSS of the process it was forked from, so the
+# work runs under this small launcher, never straight under chip_smoke
+_LAUNCHER = ("import os, subprocess, sys\n"
+             "p = subprocess.Popen(sys.argv[1:])\n"
+             "_, status, usage = os.wait4(p.pid, 0)\n"
+             "print(f'peak RSS KiB {usage.ru_maxrss}', flush=True)\n"
+             "sys.exit(os.waitstatus_to_exitcode(status))\n")
+
+
+def _child(code: str, args, log_path: str):
+    """Run the Python `code` (with sys.argv[1:] = args and the checkout on
+    sys.path) as a child process under _LAUNCHER, its output to log_path;
+    returns (wall seconds, the child's peak RSS in bytes). Raises with the
+    log's end if it fails; never leaves it running."""
+    prog = f"import sys\nsys.path.insert(0, {REPO!r})\n{code}\n"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _LAUNCHER, sys.executable, "-c", prog,
+             *args], cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            proc.wait()
+        finally:
+            if proc.returncode is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"child exited {proc.returncode}:\n"
+                           f"{text[-4000:]}")
+    rss = [ln.split()[-1] for ln in text.splitlines()
+           if ln.startswith("peak RSS KiB")]
+    return wall, int(rss[-1]) * 1024
+
+
+def run_wgs_path(work: str):
+    """Phase C; logs each run."""
+    from pisces_tpu_torch.entry import compare_vcf_files
+
+    os.makedirs(work, exist_ok=True)
+    free = shutil.disk_usage(work).free
+    gen_s, gen_rss = _child(
+        "from pisces_tpu_torch.synthetic import generate_wgs_workload\n"
+        "generate_wgs_workload(sys.argv[1], int(sys.argv[2]), "
+        "int(sys.argv[3]))",
+        [os.path.join(work, "wl"), str(WGS_READS), str(WGS_LEN)],
+        os.path.join(work, "gen.log"))
+    bam = os.path.join(work, "wl", "wgs.bam")
+    log(f"WGS workload: 1 x {WGS_LEN:,} bp, {WGS_READS:,} messy reads "
+        f"({WGS_READS * 100 / WGS_LEN:.0f}x), generated in a child in "
+        f"{gen_s:.1f} s (peak RSS {gen_rss / 2**30:.2f} GiB); BAM "
+        f"{os.path.getsize(bam) / 2**20:.0f} MiB; "
+        f"{free / 2**30:.0f} GiB free before")
+    _, base_rss = _child("import torch\ntorch.zeros(1, device='cuda')", [],
+                         os.path.join(work, "base.log"))
+    log(f"a child that imports torch and opens the CUDA context: peak RSS "
+        f"{base_rss / 2**30:.2f} GiB")
+    windows = -(-WGS_LEN // WGS_WINDOW)
+    vcfs = []
+    for backend in ("torch", "numpy"):
+        out = os.path.join(work, backend)
+        mj = os.path.join(work, f"{backend}.metrics.json")
+        wall, rss = _child(
+            "from pisces_tpu_torch.apps.pisces import main\n"
+            "rc = main(sys.argv[1:])\n"
+            "if rc:\n"
+            "    sys.exit(rc)",
+            ["-bam", bam, "-g", os.path.join(work, "wl", "genome"),
+             "-o", out, "-gVCF", "true", "-WindowSize", str(WGS_WINDOW),
+             "-backend", backend, "-metricsjson", mj],
+            os.path.join(work, f"{backend}.log"))
+        with open(mj) as f:
+            m = json.load(f)
+        pileups = m["stages"]["pileup"]["calls"]
+        if pileups != windows:
+            raise AssertionError(f"WGS -backend {backend}: {pileups} native "
+                                 f"pileups for {windows} windows")
+        vcfs.append(os.path.join(out, "wgs.genome.vcf"))
+        log(f"WGS -backend {backend} (child process): {wall:.2f} s "
+            f"({WGS_READS / wall:,.0f} reads/s), {pileups} windows of "
+            f"{WGS_WINDOW:,} bp, peak RSS {rss / 2**30:.2f} GiB, device "
+            f"watermark {m['hbm_peak_bytes'] / 2**20:.1f} MiB; stages: "
+            + ", ".join(f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
+                        for k, v in m["stages"].items())
+            + f"; counters: {m['counters']}")
+    n = compare_vcf_files(*vcfs)
+    log(f"WGS: {n:,} gVCF lines, -backend torch agrees with -backend "
+        "numpy (reference-line SB within 1e-3 dB above -40 dB and 5% "
+        "below)")
+
+
+# ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
 
@@ -776,20 +1034,38 @@ def main_smoke() -> int:
     err = {"score_tuples": check_tuple_kernel(device),
            "score_loci": check_loci_kernel(device)}
 
-    # phase 3: the main path
+    # phase 3: the main path; its workload stays for phase A
     work = os.path.join(REPO, "build", "chip_smoke")
     try:
         launches, seen, rec, e2e = run_main_path(work, device)
+
+        # phase 4: the mesh path on the Python flow's events
+        mesh_launches, mesh_err, tiles, mesh_runs = run_mesh_path(rec,
+                                                                  device)
+        err["score_loci"] = max(err["score_loci"], mesh_err)
+        del rec
+
+        # phase 5: the entry points
+        err["score_loci"] = max(err["score_loci"], run_entry_points(device))
+
+        # phase A: the main path's chromosome in windows
+        win_runs = run_windowed_path(work, device, e2e.pop("body"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # phase 4: the mesh path on the Python flow's events
-    mesh_launches, mesh_err, tiles, mesh_runs = run_mesh_path(rec, device)
-    err["score_loci"] = max(err["score_loci"], mesh_err)
-    del rec
+    # phase B: the schedulers
+    work = os.path.join(REPO, "build", "chip_smoke_sched")
+    try:
+        sched_runs = run_scheduler_paths(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    # phase 5: the entry points
-    err["score_loci"] = max(err["score_loci"], run_entry_points(device))
+    # phase C: WGS streaming in child processes
+    work = os.path.join(REPO, "build", "chip_smoke_wgs")
+    try:
+        run_wgs_path(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # time each kernel and its plain version on the main paths' own inputs
     # and at 200,000 random tuples
@@ -833,6 +1109,11 @@ def main_smoke() -> int:
                       for k, v in r["stages"].items()) +
             f"; {r['stats']}")
     log(f"peak device memory (main path): {e2e['peak_bytes'] / 2**20:.1f} MiB")
+    for r in win_runs + sched_runs:
+        if r.get("stages"):
+            log(f"stages ({r['run']}): " + ", ".join(
+                f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
+                for k, v in r["stages"].items()))
 
     # the tuple kernel's line carries the main path's tuples, the counts
     # kernel's the 1-shard mesh run: its launches and the tile it launched on
@@ -845,6 +1126,9 @@ def main_smoke() -> int:
         "source": "pisces_tpu_torch/csrc/score_tuples.cu",
         "replaces": "pisces_tpu/ops/pallas_scoring.py:245",
         "launches": launches["score_tuples"],
+        "launches_by_path": {
+            "main": launches["score_tuples"],
+            **{r["run"]: r["launches"] for r in win_runs + sched_runs}},
         "max_abs_err": err["score_tuples"],
         "ms": t["ms"],
         "device_ms": t["device_ms"],
@@ -861,6 +1145,8 @@ def main_smoke() -> int:
         "source": "pisces_tpu_torch/csrc/score_loci.cu",
         "replaces": "pisces_tpu/ops/pallas_scoring.py:220",
         "launches": mesh_launches[MESH_SHARDS[0]],
+        "launches_by_path": {f"mesh {n} shard(s)": mesh_launches[n]
+                             for n in MESH_SHARDS},
         "max_abs_err": err["score_loci"],
         "ms": lt["ms"],
         "device_ms": lt["device_ms"],

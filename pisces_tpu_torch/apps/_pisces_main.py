@@ -143,7 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="with -MultiProcess: skip completed chromosome shards")
     a("-windowsize", type=int, default=0,
       help="stream chromosomes in windows of this many bases via the .bai "
-           "index (not yet ported); 0 = whole-chromosome")
+           "index (whole chromosomes, with a WARNING, without one); "
+           "0 = whole-chromosome")
     a("-meshdevices", type=int, default=0,
       help="shard the gVCF reference scoring and large candidate batches "
            "over a mesh of N devices of -device's type (with cuda, N "

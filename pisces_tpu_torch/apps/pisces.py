@@ -5,16 +5,20 @@ Logic/SmallVariantCaller.cs:79-116, Logic/Processing/GenomeProcessor.cs:13-193):
 per (BAM x chromosome) work, candidate finding + pileup counts + per-locus
 scoring, VCF/gVCF output.
 
-This slice runs whole chromosomes serially through the native read flow
-(the C++ BAM decode and pileup pass of io/native, as the reference
-package's default run), with somatic ploidy, the default filters, optional
--IntervalPaths and -MeshDevices N (the gVCF reference scoring and large
-candidate batches sharded over N devices of -device's type,
-parallel/sharding.py, from Python read events). Options outside it raise
-NotImplementedError naming the ROADMAP item that ports them.
+The port runs chromosomes through the native read flow (the C++ BAM decode
+and pileup pass of io/native, as the reference package's default run), with
+somatic ploidy, the default filters, optional -IntervalPaths, -WindowSize
+streaming over the .bai, the schedulers of parallel/scheduler.py
+(-MaxThreads, several BAMs, -ThreadByChr, -MultiProcess with -Resume) and
+-MeshDevices N (the gVCF reference scoring and large candidate batches
+sharded over N devices of -device's type, parallel/sharding.py, from Python
+read events). Options outside it raise NotImplementedError naming the
+ROADMAP item that ports them.
 
     python -m pisces_tpu_torch.apps.pisces -bam B -g G -o O -gVCF true \\
-        [-device cuda|cpu] [-backend torch|numpy] [-MeshDevices N]
+        [-device cuda|cpu] [-backend torch|numpy] [-MeshDevices N] \\
+        [-WindowSize W] [-MaxThreads T [-ThreadByChr true]] \\
+        [-MultiProcess true [-Resume true]]
 """
 from __future__ import annotations
 
@@ -62,8 +66,6 @@ def check_ported(options: PiscesApplicationOptions) -> None:
     """Raise for the options this slice of the port does not run."""
     v = options.variant_calling_parameters
     w = options.vcf_writing_parameters
-    if options.window_size > 0:
-        raise _not_ported("-WindowSize", 2)
     if v.ploidy_model != PloidyModel.SOMATIC:
         raise _not_ported(f"ploidy {v.ploidy_model.name}", 6)
     checks = [
@@ -96,11 +98,12 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                     bam, intervals=None, device="cuda", mesh=None):
     """Run the full calling pipeline for one chromosome.
 
-    `bam` is a reader from io/native.open_bam. The native reader takes the
-    native flow: C++ decode, then one C++ pileup pass for the counts, the
-    unique gVCF tuples and the SNV mismatches. The Python reader
-    (open_bam(prefer_native=False)) takes the Python flow: read events and
-    a torch count build. `device` is the torch device for the Python flow's
+    `bam` is a reader from io/native.open_bam, or a window's _RegionView
+    over a lazy one. The native reader takes the native flow: C++ decode,
+    then one C++ pileup pass for the counts, the unique gVCF tuples and the
+    SNV mismatches. The Python reader (open_bam(prefer_native=False)) takes
+    the Python flow: read events and a torch count build. `device` is the
+    torch device for the Python flow's
     count build, the tuple-scoring kernel and large candidate batches
     ("cuda" unless the caller passes "cpu"); None runs everything on the
     host in numpy (-backend numpy). `mesh` (parallel/sharding.Mesh,
@@ -120,7 +123,9 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
         raise _not_ported("read-collapsed input", 7)
 
     ref_id = bam.header.ref_index(chrom.name)
-    native = isinstance(bam, NativeBamReader)
+    # the native handle may sit behind a window's _RegionView
+    reader = getattr(bam, "reader", bam)
+    native = isinstance(reader, NativeBamReader)
     with metrics.stage("bam_fetch"):
         # the native reader serves seq/qual/cigar as zero-copy views into
         # its decode buffers: this call consumes the batch before the
@@ -144,7 +149,7 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                 track_open_ended=options.collapse)
         anchor_positions = candidate_anchor_positions(indels)
         with metrics.stage("pileup"):
-            pc, mm = native_pileup(bam, keep, bf.minimum_base_call_quality,
+            pc, mm = native_pileup(reader, keep, bf.minimum_base_call_quality,
                                    options.tracked_anchor_size,
                                    anchor_positions,
                                    ref_codes=BASE_TO_ALLELE[chrom.sequence],
@@ -295,41 +300,161 @@ def write_spliced(writer, variant_alleles, ref_lines) -> None:
     _bulk_refs_upto(n_ref)
 
 
-def process_bam(options: PiscesApplicationOptions, bam_path: str,
-                genome: Genome, out_vcf: Optional[str] = None,
-                device="cuda", backend: str = "torch") -> str:
-    """Call one BAM, chromosome by chromosome; returns the VCF path.
+class _RegionView:
+    """One genomic window of a lazy indexed reader, shown to call_chromosome
+    as if it were the whole file, so each window runs with bounded memory
+    (the streaming analog of the reference's 1000-bp block recycling,
+    RegionStateManager.cs:425-439, scaled to .bai granularity)."""
 
-    The BAM opens with io/native.open_bam, so the run takes the native
-    flow; a caller that swaps in open_bam(path, prefer_native=False) gets
-    the pure-Python reader and flow.
+    def __init__(self, reader, ref_id: int, beg0: int, end0: int):
+        self.reader = reader
+        self.header = reader.header
+        self._region = (ref_id, beg0, end0)
 
-    `device` is "cuda" unless the caller asks for "cpu"; it raises when
-    CUDA is absent. backend "numpy" keeps all scoring but the mesh's on the
-    f64 host path. With options.mesh_devices > 1 the gVCF reference loci
-    score on a mesh of that many devices of `device`'s type (raises when
-    CUDA has fewer cards).
-    """
+    def fetch(self, ref_id=None, as_views: bool = False):
+        if as_views:
+            return self.reader.fetch_region(*self._region, as_views=True)
+        return self.reader.fetch_region(*self._region)
+
+
+def _trim_window_result(result, w0: int, w1: int):
+    """Keep the loci inside the window [w0 + 1, w1] (1-based). The result
+    owns its arrays (native_pileup copies the gVCF positions; the lines
+    live in their own render buffer), so a trimmed window stays valid after
+    its handle's next fetch."""
+    if not isinstance(result, tuple):
+        return [a for a in result if w0 < a.position <= w1], None
+    alleles, ref_lines = result
+    alleles = [a for a in alleles if w0 < a.position <= w1]
+    if ref_lines is not None:
+        positions, lines = ref_lines
+        # window-interior positions form a contiguous run
+        lo = int(np.searchsorted(positions, w0 + 1))
+        hi = int(np.searchsorted(positions, w1, side="right"))
+        ref_lines = (positions[lo:hi], lines.slice(lo, hi))
+    return alleles, ref_lines
+
+
+def call_chromosome_windowed(options, chrom, reader, ref_id: int,
+                             intervals=None, device="cuda", mesh=None,
+                             reader_factory=None, pipeline_threads: int = 1):
+    """Stream one chromosome in options.window_size slices. Yields
+    (result, w_start1, w_end1) per window, result as _trim_window_result
+    gives it. Counts at in-window positions are complete because
+    fetch_region selects reads by overlap, and options.window_margin covers
+    spanning-variant endpoint lookups past the window edge. `device` and
+    `mesh` reach every window as call_chromosome takes them.
+
+    With pipeline_threads > 1 and a reader_factory, windows run on worker
+    threads, each with its OWN reader handle (a lazy fetch rewrites its
+    handle's decode buffers), while earlier windows are written: the input
+    overlap of SURVEY M3. Results are yielded strictly in window order."""
+    L = len(chrom.sequence)
+    win = options.window_size
+    margin = options.window_margin
+    windows = [(w0, min(w0 + win, L)) for w0 in range(0, L, win)]
+
+    def run(handle, w0: int, w1: int):
+        view = _RegionView(handle, ref_id, max(0, w0 - margin),
+                           min(L, w1 + margin))
+        result = call_chromosome(options, chrom, view, intervals, device,
+                                 mesh)
+        return _trim_window_result(result, w0, w1)
+
+    if pipeline_threads <= 1 or reader_factory is None or len(windows) <= 1:
+        for w0, w1 in windows:
+            yield run(reader, w0, w1), w0 + 1, w1
+        return
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_workers = min(pipeline_threads, len(windows))
+    execs = [ThreadPoolExecutor(max_workers=1) for _ in range(n_workers)]
+    handles: List = [None] * n_workers
+
+    def work(slot: int, w0: int, w1: int):
+        if handles[slot] is None:
+            handles[slot] = reader_factory()
+        return run(handles[slot], w0, w1)
+
+    try:
+        futures = [execs[i].submit(work, i, *windows[i])
+                   for i in range(n_workers)]
+        for i, (w0, w1) in enumerate(windows):
+            trimmed = futures[i].result()
+            futures[i] = None  # drop the result: bounded-memory streaming
+            nxt = i + n_workers
+            if nxt < len(windows):
+                futures.append(execs[nxt % n_workers].submit(
+                    work, nxt % n_workers, *windows[nxt]))
+            yield trimmed, w0 + 1, w1
+    finally:
+        for ex in execs:
+            ex.shutdown(wait=True)
+
+
+def scoring_setup(options: PiscesApplicationOptions, device="cuda",
+                  backend: str = "torch"):
+    """Check a run's options and devices once: returns (score_device, mesh),
+    the torch device that scores (None for -backend numpy, which keeps all
+    scoring but the mesh's on the f64 host path) and the -MeshDevices mesh
+    of that many devices of `device`'s type (None without one; raises when
+    CUDA has fewer cards). `device` is "cuda" unless the caller asks for
+    "cpu"; it raises when CUDA is absent."""
     if backend not in ("torch", "numpy"):
         raise ValueError(f"backend must be torch or numpy, got {backend!r}")
     device = resolve_device(device)
-    score_device = device if backend == "torch" else None
     check_ported(options)
     options.validate()
     mesh = None
     if options.mesh_devices > 1:
         from pisces_tpu_torch.parallel.sharding import get_mesh
         mesh = get_mesh(options.mesh_devices, device)
-    bam = open_bam(bam_path)
-    gvcf = options.vcf_writing_parameters.output_gvcf_file
+    return (device if backend == "torch" else None), mesh
+
+
+def default_vcf_path(options: PiscesApplicationOptions, bam_path: str) -> str:
+    """<output dir or the BAM's dir>/<BAM stem>.genome.vcf (.vcf without
+    gVCF); makes the directory."""
+    stem = os.path.basename(bam_path)
+    if stem.endswith(".bam"):
+        stem = stem[:-4]
+    suffix = ".genome.vcf" if options.vcf_writing_parameters.output_gvcf_file \
+        else ".vcf"
+    out_dir = options.output_directory or os.path.dirname(bam_path)
+    os.makedirs(out_dir, exist_ok=True)
+    return os.path.join(out_dir, stem + suffix)
+
+
+def process_bam(options: PiscesApplicationOptions, bam_path: str,
+                genome: Genome, out_vcf: Optional[str] = None,
+                device="cuda", backend: str = "torch") -> str:
+    """Call one BAM, chromosome by chromosome; returns the VCF path.
+
+    The BAM opens with io/native.open_bam, so the run takes the native
+    flow; a caller that swaps in open_bam(path, prefer_native=False, lazy)
+    gets the pure-Python reader and flow. With options.window_size > 0 and
+    a sibling .bai each chromosome streams in windows through a lazy
+    reader (call_chromosome_windowed; two pipeline threads when the host
+    has more than two cores and options.max_num_threads allows), and the
+    whole file is never inflated; without the .bai a WARNING is logged and
+    the chromosome runs whole, as in the reference.
+
+    `device` and `backend` as scoring_setup takes them.
+    """
+    score_device, mesh = scoring_setup(options, device, backend)
     if out_vcf is None:
-        stem = os.path.basename(bam_path)
-        if stem.endswith(".bam"):
-            stem = stem[:-4]
-        suffix = ".genome.vcf" if gvcf else ".vcf"
-        out_dir = options.output_directory or os.path.dirname(bam_path)
-        os.makedirs(out_dir, exist_ok=True)
-        out_vcf = os.path.join(out_dir, stem + suffix)
+        out_vcf = default_vcf_path(options, bam_path)
+    gvcf = options.vcf_writing_parameters.output_gvcf_file
+    has_bai = options.window_size > 0 and os.path.exists(bam_path + ".bai")
+    lazy = open_bam(bam_path, lazy=True) if has_bai else None
+    bam = None if has_bai else open_bam(bam_path)
+    header = (lazy or bam).header
+    # the reference package measured window pipelining slower on a 2-core
+    # host (GIL and bandwidth contention with the writer), so windows
+    # overlap only where cores are plentiful
+    cores = os.cpu_count() or 1
+    n_pipe = 1 if cores <= 2 else max(1, min(2, options.max_num_threads))
 
     wcfg = VcfWriterConfig(options, has_forced_gt=False)
     # the reference's sample column is the bam file name incl. extension
@@ -341,7 +466,7 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
         writer.write_header()
         from pisces_tpu_torch.calling.intervals import make_region_mapper
         for chrom_name in genome.chromosome_names:
-            if chrom_name not in bam.header.ref_names:
+            if chrom_name not in header.ref_names:
                 log(f"skipping {chrom_name}: not in bam")
                 continue
             if options.chromosome_filter and chrom_name != options.chromosome_filter:
@@ -349,15 +474,36 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
             chrom = genome.get_chr_reference(chrom_name)
             intervals = _load_intervals(options, chrom_name)
             t0 = time.time()
-            result = call_chromosome(options, chrom, bam, intervals,
-                                     score_device, mesh)
-            if isinstance(result, tuple):
-                alleles, ref_lines = result
-                write_spliced(writer, alleles, ref_lines)
+            # windows need no intervals, plain-VCF output, or the columnar
+            # fast-gVCF path (which folds RegionMapper interval padding
+            # into its per-window reference lines)
+            win_ok = (intervals is None or not gvcf
+                      or _fast_gvcf_eligible(options))
+            if options.window_size > 0 and win_ok and lazy is not None:
+                for (alleles, ref_lines), _w0, _w1 in \
+                        call_chromosome_windowed(
+                            options, chrom, lazy,
+                            header.ref_index(chrom_name), intervals,
+                            score_device, mesh,
+                            reader_factory=lambda: open_bam(bam_path,
+                                                            lazy=True),
+                            pipeline_threads=n_pipe):
+                    write_spliced(writer, alleles, ref_lines)
             else:
-                mapper = make_region_mapper(options, chrom, intervals)
-                writer.write(result, mapper)
-                writer.write_remaining(mapper)
+                if options.window_size > 0 and win_ok:
+                    log(f"window mode requested but {bam_path}.bai missing; "
+                        "processing whole chromosome", "WARNING")
+                if bam is None:
+                    bam = open_bam(bam_path)
+                result = call_chromosome(options, chrom, bam, intervals,
+                                         score_device, mesh)
+                if isinstance(result, tuple):
+                    alleles, ref_lines = result
+                    write_spliced(writer, alleles, ref_lines)
+                else:
+                    mapper = make_region_mapper(options, chrom, intervals)
+                    writer.write(result, mapper)
+                    writer.write_remaining(mapper)
             log(f"Completed processing chr {chrom_name} in "
                 f"{time.time() - t0:.2f} secs")
     return out_vcf
@@ -386,19 +532,13 @@ def main(argv=None) -> int:
     bam_paths = options.bam_paths
     if _b(args.multihost):
         raise _not_ported("-MultiHost", 5)
-    if (_b(args.multiprocess) or args.max_threads > 1
-            or len(bam_paths) > 1):
-        raise _not_ported("-MultiProcess, -MaxThreads > 1 and several BAMs",
-                          3)
     check_ported(options)
     device = resolve_device(args.device)
 
     def execute() -> int:
         from pisces_tpu_torch.utils.metrics import profiler_trace
         with profiler_trace(args.profiledir):
-            out = process_bam(options, bam_paths[0], Genome(args.genome),
-                              device=device, backend=args.backend)
-        log(f"wrote {out}")
+            _execute_inner()
         snap = metrics.report()
         if snap["counters"].get("loci_scored"):
             sec = snap["stages"].get("gvcf_scoring", {}).get("seconds", 0)
@@ -408,6 +548,25 @@ def main(argv=None) -> int:
         if args.metricsjson:
             metrics.write_json(args.metricsjson)
         return 0
+
+    def _execute_inner() -> None:
+        from pisces_tpu_torch.parallel import scheduler
+        if _b(args.multiprocess) and not _b(args.insidesubprocess):
+            for bam_path in bam_paths:
+                out = scheduler.process_chromosomes_multiprocess(
+                    options, bam_path, args.genome, args.max_threads,
+                    device, args.backend, resume=_b(args.resume))
+                log(f"wrote {out}")
+        elif args.max_threads > 1 or len(bam_paths) > 1:
+            for out in scheduler.process_bams_parallel(
+                    options, bam_paths, Genome(args.genome),
+                    args.max_threads, device, args.backend,
+                    thread_by_chr=options.thread_by_chr):
+                log(f"wrote {out}")
+        else:
+            out = process_bam(options, bam_paths[0], Genome(args.genome),
+                              device=device, backend=args.backend)
+            log(f"wrote {out}")
 
     from pisces_tpu_torch.utils.app import run_application
     log_dir = args.out or os.path.dirname(os.path.abspath(bam_paths[0]))

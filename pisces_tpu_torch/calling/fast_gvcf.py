@@ -24,6 +24,7 @@ import torch
 from pisces_tpu_torch.domain.types import Genotype
 from pisces_tpu_torch.pileup.counts import PileupCounts
 from pisces_tpu_torch.io.vcf_write import VcfWriterConfig, dotnet_format
+from pisces_tpu_torch.utils.metrics import metrics
 
 _GT_STR = {
     int(Genotype.HOMOZYGOUS_REF): "0/0",
@@ -126,7 +127,9 @@ def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params, device):
     # device dispatch pays off only above a batch-size threshold (same
     # rationale as CallerConfig.device_batch_threshold); the f64 host path
     # is the byte-parity oracle
+    metrics.count("gvcf_unique_tuples", len(uniq))
     if device is not None and len(uniq) >= DEVICE_TUPLE_THRESHOLD:
+        metrics.count("gvcf_unique_tuples_on_device", len(uniq))
         from pisces_tpu_torch.ops.scoring_kernels import score_reference_tuples
         tuples = torch.from_numpy(
             np.ascontiguousarray(uniq[:, :6], dtype=np.int32)).to(device)

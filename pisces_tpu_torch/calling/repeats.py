@@ -189,12 +189,8 @@ class RefSeqStr:
         if self._ptr is None:
             import ctypes
             from pisces_tpu_torch.io.native import get_lib
-            fn = get_lib().rmxn_min_component
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            self._ptr = (fn, ctypes.c_void_p(self._a.ctypes.data))
+            self._ptr = (get_lib().rmxn_min_component,
+                         ctypes.c_void_p(self._a.ctypes.data))
         fn, ptr = self._ptr
         if category == AlleleCategory.INSERTION:
             cat = 1

@@ -6,10 +6,10 @@ CIGAR op arrays, seq codes, quals) ready for host->device DMA, instead of
 per-read objects.
 
 This is the pure-Python read flow of the port (open_bam(prefer_native=
-False)): whole-file decode and per-chromosome extraction. The default
-reader is the C++ one, io/native.NativeBamReader, with the same ReadBatch
-contract; indexed region fetches (.bai) and tag decoding in Python are not
-ported yet.
+False)): whole-file decode and per-chromosome extraction, or with lazy=True
+region fetches over the .bai. The default reader is the C++ one,
+io/native.NativeBamReader, with the same ReadBatch contract; tag decoding
+in Python is not ported yet.
 """
 from __future__ import annotations
 
@@ -108,14 +108,42 @@ class BamHeader:
 
 
 class BamReader:
-    """Whole-file BAM reader with per-chromosome columnar extraction."""
+    """Whole-file BAM reader with per-chromosome columnar extraction.
 
-    def __init__(self, path: str):
+    With lazy=True the file stays compressed and fetch_region() inflates
+    only the BGZF blocks the sibling .bai maps to the query (the
+    reference's BamReader.Jump, Alignment.IO/BamReader.cs:22-677); a lazy
+    reader has no fetch(), as io/native's lazy reader has none."""
+
+    def __init__(self, path: str, lazy: bool = False):
         self.path = path
         with open(path, "rb") as f:
-            self._data = bgzf.decompress(f.read())
-        self.header, self._records_start = self._parse_header()
+            raw = f.read()
+        self._raw: Optional[bytes] = raw if lazy else None
+        self._bai = None
+        if lazy:
+            buf = bytearray()
+            for _, _, chunk in bgzf.iter_blocks(raw):
+                buf.extend(chunk)
+                self._data = bytes(buf)
+                try:
+                    self.header, self._records_start = self._parse_header()
+                    break
+                except (struct.error, ValueError, IndexError):
+                    continue
+            else:
+                raise ValueError(f"{path}: could not parse BAM header")
+        else:
+            self._data = bgzf.decompress(raw)
+            self.header, self._records_start = self._parse_header()
         self._record_offsets: Optional[np.ndarray] = None
+
+    def index(self):
+        """The sibling .bai (io/bai.BamIndex), read once; None without one."""
+        if self._bai is None:
+            from pisces_tpu_torch.io.bai import read_sibling_bai
+            self._bai = read_sibling_bai(self.path) or False
+        return self._bai or None
 
     def _parse_header(self) -> Tuple[BamHeader, int]:
         d = self._data
@@ -141,6 +169,9 @@ class BamReader:
     def _scan_record_offsets(self) -> np.ndarray:
         if self._record_offsets is not None:
             return self._record_offsets
+        if self._raw is not None:
+            raise ValueError(f"{self.path}: a lazy reader serves "
+                             "fetch_region() only")
         d = self._data
         offsets = []
         off = self._records_start
@@ -242,6 +273,82 @@ class BamReader:
             mate_ref_id=mate_ref_id,
             mate_pos=mate_pos,
         )
+
+    def fetch_region(self, ref_id: int, beg0: int, end0: int) -> ReadBatch:
+        """Reads of ref_id overlapping [beg0, end0) (0-based half-open).
+        A lazy reader inflates only the chunks its .bai maps to the query
+        (IOError without one); a whole-file reader decodes the chromosome
+        and masks it."""
+        if self._raw is None:
+            batch = self.fetch(ref_id)
+            return subset_batch(batch,
+                                (batch.pos < end0) & (batch.end_pos >= beg0))
+        idx = self.index()
+        if idx is None:
+            raise IOError(f"{self.path}: a lazy region fetch needs "
+                          f"{self.path}.bai")
+        raw = self._raw
+        offsets: List[int] = []
+        ref_ids_l: List[int] = []
+        poss_l: List[int] = []
+        mapqs_l: List[int] = []
+        flags_l: List[int] = []
+        bufs: List[bytes] = []
+        buf_base = 0
+        for c_beg, c_end in idx.query(ref_id, beg0, end0):
+            blocks = bgzf.iter_blocks(raw, c_beg >> 16)
+            buf = bytearray()
+            block_fo: List[int] = []   # file offset per inflated block
+            block_u: List[int] = []    # inflated start of each block in buf
+
+            def pull() -> bool:
+                try:
+                    fo, _, chunk = next(blocks)
+                except StopIteration:
+                    return False
+                block_fo.append(fo)
+                block_u.append(len(buf))
+                buf.extend(chunk)
+                return True
+
+            if not pull():
+                continue
+            p = c_beg & 0xFFFF
+            while True:
+                # virtual offset of the record that starts at p
+                bi = np.searchsorted(block_u, p, side="right") - 1
+                voff = (block_fo[bi] << 16) | (p - block_u[bi])
+                if voff >= c_end:
+                    break
+                while len(buf) < p + 36 and pull():
+                    pass
+                if len(buf) < p + 36:
+                    break
+                block_size = int.from_bytes(buf[p:p + 4], "little",
+                                            signed=True)
+                while len(buf) < p + 4 + block_size and pull():
+                    pass
+                if len(buf) < p + 4 + block_size:
+                    break
+                rid, pos = struct.unpack_from("<ii", buf, p + 4)
+                if rid == ref_id and pos < end0:
+                    offsets.append(buf_base + p)
+                    ref_ids_l.append(rid)
+                    poss_l.append(pos)
+                    mapqs_l.append(buf[p + 13])
+                    flags_l.append(struct.unpack_from("<H", buf, p + 18)[0])
+                p += 4 + block_size
+            bufs.append(bytes(buf))
+            buf_base += len(buf)
+
+        m = len(offsets)
+        batch = self._decode_selected(
+            b"".join(bufs), np.asarray(offsets, dtype=np.int64),
+            np.asarray(ref_ids_l, dtype=np.int32),
+            np.asarray(poss_l, dtype=np.int32),
+            np.asarray(mapqs_l, dtype=np.uint8),
+            np.asarray(flags_l, dtype=np.uint16), np.arange(m))
+        return subset_batch(batch, batch.end_pos >= beg0)
 
 
 def subset_batch(batch: ReadBatch, mask: np.ndarray) -> ReadBatch:

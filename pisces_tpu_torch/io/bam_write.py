@@ -2,8 +2,8 @@
 
 Reference: src/lib/Alignment.IO/BamWriter.cs:1-366, BamWriterInMem.cs
 (in-memory sort then write). Emits coordinate-sorted BAM through the
-plain-zlib BGZF writer; the synthetic workloads (pisces_tpu_torch.synthetic)
-write their inputs with it. Index (.bai) output is not ported.
+plain-zlib BGZF writer, and optionally its .bai; the synthetic workloads
+(pisces_tpu_torch.synthetic) write their inputs with it.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from pisces_tpu_torch.io import bgzf
+from pisces_tpu_torch.io.bai import BaiBuilder, reg2bin, write_bai
 
 # char -> 4-bit nibble code in '=ACMGRSVTWYHKDBN'
 _NIBBLE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
@@ -89,22 +90,6 @@ class BamRecord:
         return struct.pack("<i", len(body)) + body
 
 
-def reg2bin(beg: int, end: int) -> int:
-    """Smallest bin containing [beg, end) (SAMv1 spec algorithm)."""
-    end -= 1
-    if beg >> 14 == end >> 14:
-        return ((1 << 15) - 1) // 7 + (beg >> 14)
-    if beg >> 17 == end >> 17:
-        return ((1 << 12) - 1) // 7 + (beg >> 17)
-    if beg >> 20 == end >> 20:
-        return ((1 << 9) - 1) // 7 + (beg >> 20)
-    if beg >> 23 == end >> 23:
-        return ((1 << 6) - 1) // 7 + (beg >> 23)
-    if beg >> 26 == end >> 26:
-        return ((1 << 3) - 1) // 7 + (beg >> 26)
-    return 0
-
-
 def parse_cigar_string(cigar: str) -> List[Tuple[int, int]]:
     import re
     return [(_CIGAR_OPS.index(op), int(n))
@@ -138,14 +123,24 @@ class BamWriter:
             out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
         return out
 
-    def write(self, sort: bool = True) -> str:
-        """Write the BAM (coordinate-sorted by default)."""
+    def write(self, sort: bool = True, index: bool = False) -> str:
+        """Write the BAM (coordinate-sorted by default). With index=True a
+        sibling .bai is built from the records' virtual offsets while
+        writing (the reference's BamWriter + BamIndex.CreateIndexFromBamFile
+        analog); the BAM bytes are the same either way."""
         if sort:
             self.records.sort(key=lambda r: (r.ref_id, r.pos0))
+        builder = BaiBuilder(len(self.ref_names)) if index else None
         with open(self.path, "wb") as f:
             w = bgzf.BgzfWriter(f)
             w.write(self.header_bytes())
             for r in self.records:
+                v0 = w.tell_virtual()
                 w.write(r.encode())
+                if builder is not None:
+                    builder.add(r.ref_id, r.pos0, r.ref_end0(), v0,
+                                w.tell_virtual(), mapped=not (r.flag & 0x4))
             w.close()
+        if builder is not None:
+            write_bai(builder.build(), self.path + ".bai")
         return self.path

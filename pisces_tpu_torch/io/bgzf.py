@@ -1,8 +1,10 @@
-"""BGZF block codec, pure-Python fallback.
+"""BGZF block codec in Python (CPython's zlib).
 
 The reference routes every BAM/gz byte through a native zlib wrapper
-(src/lib/Common.IO/FileCompression.cs:10-35, BgzfCommon.cs). The port
-uses CPython's zlib (C speed); a native streaming codec is not ported yet.
+(src/lib/Common.IO/FileCompression.cs:10-35, BgzfCommon.cs). This module is
+the streaming codec of the Python read flow and the BAM writer; the
+threaded deflater of large buffers is io/native.bgzf_compress_parallel,
+which cuts blocks at the same 0xFF00-byte boundaries.
 """
 from __future__ import annotations
 
@@ -47,24 +49,36 @@ def decompress(data: bytes) -> bytes:
     return b"".join(chunk for _, _, chunk in iter_blocks(data))
 
 
+def _block(chunk: bytes, level: int) -> bytes:
+    """One BGZF block holding `chunk` (at most 0xFF00 bytes)."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    cdata = co.compress(chunk) + co.flush()
+    return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
+            + struct.pack("<H", 6) + b"BC"
+            + struct.pack("<HH", 2, len(cdata) + 25)
+            + cdata
+            + struct.pack("<II", zlib.crc32(chunk), len(chunk)))
+
+
 class BgzfWriter:
-    """Streaming BGZF deflater (0xFF00-byte payload per block)."""
+    """Streaming BGZF deflater (0xFF00-byte payload per block) exposing
+    virtual offsets ((block file offset << 16) | offset within block), so
+    a caller can build a .bai while writing (the BamWriter + BamIndex
+    coupling of the reference's Alignment.IO)."""
 
     def __init__(self, fileobj, level: int = 6):
         self._f = fileobj
         self._level = level
         self._buf = bytearray()
+        self._file_off = 0
+
+    def tell_virtual(self) -> int:
+        return (self._file_off << 16) | len(self._buf)
 
     def _flush_block(self, chunk: bytes) -> None:
-        co = zlib.compressobj(self._level, zlib.DEFLATED, -15)
-        cdata = co.compress(chunk) + co.flush()
-        bsize = len(cdata) + 26
-        block = (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
-                 + struct.pack("<H", 6) + b"BC"
-                 + struct.pack("<HH", 2, bsize - 1)
-                 + cdata
-                 + struct.pack("<II", zlib.crc32(chunk), len(chunk)))
+        block = _block(chunk, self._level)
         self._f.write(block)
+        self._file_off += len(block)
 
     def write(self, data: bytes) -> None:
         self._buf.extend(data)
@@ -77,3 +91,20 @@ class BgzfWriter:
             self._flush_block(bytes(self._buf))
             self._buf.clear()
         self._f.write(BGZF_EOF)
+        self._file_off += len(BGZF_EOF)
+
+
+def compress_with_offsets(data: bytes, level: int = 6):
+    """Deflate `data` into BGZF blocks of 0xFF00 bytes each plus the EOF
+    block. Returns (compressed bytes, int64 file offset of each block and
+    of the EOF block): a byte at uncompressed offset u has the virtual
+    offset (offsets[u // 0xFF00] << 16) | (u % 0xFF00), the contract of
+    io/native.bgzf_compress_parallel."""
+    import numpy as np
+    out = []
+    offsets = [0]
+    for i in range(0, len(data), 0xFF00):
+        out.append(_block(data[i:i + 0xFF00], level))
+        offsets.append(offsets[-1] + len(out[-1]))
+    out.append(BGZF_EOF)
+    return b"".join(out), np.array(offsets, dtype=np.int64)

@@ -1,17 +1,19 @@
 """ctypes binding for the port's C++ host module (libpisces_io).
 
 The sources are io/_native/*.cpp: pisces_io.cpp (BGZF inflate, columnar BAM
-decode with typed tags, the pileup pass with SNV mismatch extraction and the
-gVCF tuple dedup, reference-line rendering) and rmxn.cpp (the RMxN repeat
-scan). get_lib() builds them with g++ at first use into
+decode with typed tags, the lazy .bai region fetch, the pileup pass with SNV
+mismatch extraction and the gVCF tuple dedup, reference-line rendering, the
+threaded BGZF deflater) and rmxn.cpp (the RMxN repeat scan). get_lib()
+builds them with g++ at first use into
 pisces_tpu_torch/build/libpisces_io-<hash>.so, named by a hash of the
 sources, the flags and the host CPU, so a stale or foreign build never
 loads. A failed build raises with the compiler's output: open_bam never
 falls back to the Python reader unless the caller asks for it
 (prefer_native=False).
 
-The lazy .bai region reader and the BGZF compressor of pisces_io.cpp are
-not bound yet (ROADMAP Queue 1 item 2).
+The build, the ctypes bindings and the pileup count are shared by every
+thread of the process and taken under a lock; each reader handle belongs
+to one thread at a time.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -36,13 +39,18 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 LINK_FLAGS = ("-lz", "-lpthread")
 
 # native_pileup calls since the last reset (chip_smoke.py reads it to show
-# the main path took the native flow)
+# the main path took the native flow), counted under _count_lock
 pileup_calls = 0
+_count_lock = threading.Lock()
+# guards the first build and every ctypes binding: two threads that start
+# them at once would each compile, or set signatures mid-call
+_lock = threading.Lock()
 
 
 def reset_pileup_calls() -> None:
     global pileup_calls
-    pileup_calls = 0
+    with _count_lock:
+        pileup_calls = 0
 
 
 class NativeLibrary:
@@ -88,8 +96,14 @@ def library_path() -> str:
 
 def build_native() -> NativeLibrary:
     """Build (once per source, flag and CPU set) and load the library.
-    Concurrent builds each compile to a temporary file and os.replace it
-    into place; a failed build raises RuntimeError with g++'s output."""
+    Threads build once, under a lock; concurrent processes each compile to
+    a temporary file and os.replace it into place; a failed build raises
+    RuntimeError with g++'s output."""
+    with _lock:
+        return _build_native()
+
+
+def _build_native() -> NativeLibrary:
     global _native
     if _native is not None:
         return _native
@@ -124,8 +138,14 @@ def build_native() -> NativeLibrary:
 def get_lib() -> ctypes.CDLL:
     """The bound library; builds it at first use and raises if it cannot."""
     lib = build_native().lib
-    if getattr(lib, "_core_bound", False):
-        return lib
+    with _lock:
+        if not getattr(lib, "_bound", False):
+            _bind(lib)
+    return lib
+
+
+def _bind(lib) -> None:
+    """Every export's ctypes signature, set once per library."""
     lib.bam_open.restype = ctypes.c_void_p
     lib.bam_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.bam_close.argtypes = [ctypes.c_void_p]
@@ -169,8 +189,77 @@ def get_lib() -> ctypes.CDLL:
     lib.bam_total_cigar.argtypes = [ctypes.c_void_p]
     lib.bam_total_bases.restype = ctypes.c_int64
     lib.bam_total_bases.argtypes = [ctypes.c_void_p]
-    lib._core_bound = True
-    return lib
+    lib.bam_open_lazy.restype = ctypes.c_void_p
+    lib.bam_open_lazy.argtypes = [ctypes.c_char_p]
+    lib.bam_fetch_region.restype = ctypes.c_int64
+    lib.bam_fetch_region.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int64]
+    lib.bam_pileup_mm.restype = ctypes.c_int64
+    lib.bam_pileup_mm.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int8),
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int]
+    lib.pileup_n_mismatches.restype = ctypes.c_int64
+    lib.pileup_n_mismatches.argtypes = [ctypes.c_void_p]
+    lib.pileup_has_pos_tuples.restype = ctypes.c_int64
+    lib.pileup_has_pos_tuples.argtypes = [ctypes.c_void_p]
+    lib.pileup_gvcf_unique.restype = ctypes.c_int64
+    lib.pileup_gvcf_unique.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int64]
+    lib.pileup_n_uniq.restype = ctypes.c_int64
+    lib.pileup_n_uniq.argtypes = [ctypes.c_void_p]
+    for name, ct in [("pileup_mm_gpos", ctypes.c_int64),
+                     ("pileup_mm_alt", ctypes.c_int8),
+                     ("pileup_mm_dir", ctypes.c_int8),
+                     ("pileup_mm_flags", ctypes.c_int8),
+                     ("pileup_block_keys", ctypes.c_int64),
+                     ("pileup_counts_t", ctypes.c_int32),
+                     ("pileup_qual_t", ctypes.c_double),
+                     ("pileup_anchored_counts", ctypes.c_int32),
+                     ("pileup_anchored_quals", ctypes.c_double),
+                     ("pileup_pos_tuples", ctypes.c_int32),
+                     ("pileup_sel_positions", ctypes.c_int64),
+                     ("pileup_uniq_tuples", ctypes.c_int32),
+                     ("pileup_uniq_inv", ctypes.c_int32)]:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.POINTER(ct)
+        fn.argtypes = [ctypes.c_void_p]
+    lib.render_ref_lines.restype = ctypes.c_void_p
+    lib.render_ref_lines.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.rl_blob_len.restype = ctypes.c_int64
+    lib.rl_blob_len.argtypes = [ctypes.c_void_p]
+    lib.rl_blob.restype = ctypes.c_void_p
+    lib.rl_blob.argtypes = [ctypes.c_void_p]
+    lib.rl_line_off.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.rl_line_off.argtypes = [ctypes.c_void_p]
+    lib.rl_free.argtypes = [ctypes.c_void_p]
+    lib.bgzf_compress.restype = ctypes.c_void_p
+    lib.bgzf_compress.argtypes = [ctypes.POINTER(ctypes.c_uint8),
+                                  ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_int]
+    for name, ct in [("bgzfc_data_len", ctypes.c_int64),
+                     ("bgzfc_n_blocks", ctypes.c_int64)]:
+        fn = getattr(lib, name)
+        fn.restype = ct
+        fn.argtypes = [ctypes.c_void_p]
+    lib.bgzfc_data.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.bgzfc_data.argtypes = [ctypes.c_void_p]
+    lib.bgzfc_block_off.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.bgzfc_block_off.argtypes = [ctypes.c_void_p]
+    lib.bgzfc_free.argtypes = [ctypes.c_void_p]
+    lib.rmxn_min_component.restype = ctypes.c_int
+    lib.rmxn_min_component.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]
+    lib._bound = True
 
 
 def _as_array(ptr, n, dtype):
@@ -199,25 +288,30 @@ def _as_view(ptr, n, dtype):
     return arr
 
 
-def _not_ported_lazy() -> NotImplementedError:
-    return NotImplementedError(
-        "the lazy .bai region reader is not yet ported "
-        "(ROADMAP Queue 1 item 2)")
-
-
 class NativeBamReader:
     """Native counterpart of io.bam.BamReader with the same fetch()
-    contract: the whole file inflates in C++ threads at open, and each
-    fetch decodes one chromosome (or all) into columnar arrays."""
+    contract. By default the whole file inflates in C++ threads at open,
+    and each fetch decodes one chromosome (or all) into columnar arrays.
+
+    lazy=True keeps the file compressed (mapped) and serves fetch_region()
+    through the sibling .bai: only the BGZF chunks the index maps to the
+    window inflate (the reference's BamReader.Jump,
+    Alignment.IO/BamReader.cs:22-677), the bounded-memory streaming mode of
+    -WindowSize. A lazy handle holds only its last window's reads, so it
+    has no fetch()."""
 
     def __init__(self, path: str, lazy: bool = False):
-        if lazy:
-            raise _not_ported_lazy()
         from pisces_tpu_torch.io.bam import BamHeader
         lib = get_lib()
         self._lib = lib
+        self._lazy = lazy
+        self._bai = None
         self._n_decoded = None   # reads of the last fetch, held by the handle
-        self._h = lib.bam_open(path.encode(), min(os.cpu_count() or 1, 16))
+        if lazy:
+            self._h = lib.bam_open_lazy(path.encode())
+        else:
+            self._h = lib.bam_open(path.encode(),
+                                   min(os.cpu_count() or 1, 16))
         if not self._h:
             raise IOError(f"failed to open {path}")
         n_refs = lib.bam_n_refs(self._h)
@@ -233,6 +327,13 @@ class NativeBamReader:
     def n_records(self) -> int:
         return int(self._lib.bam_n_records(self._h))
 
+    def index(self):
+        """The sibling .bai (io/bai.BamIndex), read once; None without one."""
+        if self._bai is None:
+            from pisces_tpu_torch.io.bai import read_sibling_bai
+            self._bai = read_sibling_bai(self.path) or False
+        return self._bai or None
+
     def fetch(self, ref_id: Optional[int] = None, parse_tags: bool = False,
               as_views: bool = False):
         """Decode the records of ref_id (None: all). as_views=True serves
@@ -240,11 +341,19 @@ class NativeBamReader:
         handle's decode buffers, valid until the next fetch on this handle
         (native_pileup does not invalidate them); the single-pass caller
         path opts in, every other caller gets copies."""
+        if self._lazy:
+            raise ValueError(f"{self.path}: a lazy reader serves "
+                             "fetch_region() only")
+        n = int(self._lib.bam_decode_tags(
+            self._h, -1 if ref_id is None else ref_id,
+            1 if parse_tags else 0))
+        return self._batch(n, parse_tags, as_views)
+
+    def _batch(self, n: int, parse_tags: bool, as_views: bool):
+        """The ReadBatch of the handle's n decoded records."""
         from pisces_tpu_torch.io.bam import ReadBatch
         lib = self._lib
         h = self._h
-        n = int(lib.bam_decode_tags(h, -1 if ref_id is None else ref_id,
-                                    1 if parse_tags else 0))
         self._n_decoded = n
         total_cigar = int(lib.bam_total_cigar(h))
         total_bases = int(lib.bam_total_bases(h))
@@ -322,13 +431,37 @@ class NativeBamReader:
         return xd_tags, xn_tags, extra
 
     def fetch_region(self, ref_id: int, beg0: int, end0: int,
-                     parse_tags: bool = False):
-        """Reads of ref_id overlapping [beg0, end0) (0-based half-open),
-        decoded from the whole chromosome and masked (copies)."""
-        from pisces_tpu_torch.io.bam import subset_batch
-        batch = self.fetch(ref_id, parse_tags)
-        mask = (batch.pos < end0) & (batch.end_pos >= beg0)
-        return subset_batch(batch, mask)
+                     parse_tags: bool = False, as_views: bool = False):
+        """Reads of ref_id overlapping [beg0, end0) (0-based half-open).
+
+        A lazy reader queries the .bai (IOError without one) and inflates
+        only those chunks in C++, where the overlap filter also runs, so
+        the handle's decoded batch stays one-to-one with the returned one
+        (native_pileup reads it); as_views as in fetch(). A whole-file
+        reader decodes the chromosome and masks it (copies, which the
+        native pileup does not take)."""
+        if not self._lazy:
+            from pisces_tpu_torch.io.bam import subset_batch
+            batch = self.fetch(ref_id, parse_tags)
+            mask = (batch.pos < end0) & (batch.end_pos >= beg0)
+            return subset_batch(batch, mask)
+        index = self.index()
+        if index is None:
+            raise IOError(f"{self.path}: a lazy region fetch needs "
+                          f"{self.path}.bai")
+        chunks = index.query(ref_id, beg0, end0)
+        begs = np.array([c[0] for c in chunks], dtype=np.uint64)
+        ends = np.array([c[1] for c in chunks], dtype=np.uint64)
+        lib = self._lib
+        n = lib.bam_fetch_region(
+            self._h, ref_id, beg0, end0,
+            begs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            ends.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            len(chunks))
+        if n < 0:
+            raise IOError(f"{self.path}: native region fetch failed")
+        n = int(lib.bam_decode_tags(self._h, ref_id, 1 if parse_tags else 0))
+        return self._batch(n, parse_tags, as_views)
 
     def close(self):
         if self._h:
@@ -345,50 +478,12 @@ class NativeBamReader:
 def open_bam(path: str, prefer_native: bool = True, lazy: bool = False):
     """The native reader (the default; raises if the library cannot be
     built or the file cannot be opened), or with prefer_native=False the
-    pure-Python one."""
-    if lazy:
-        raise _not_ported_lazy()
+    pure-Python one. lazy=True opens it for .bai region fetches
+    (-WindowSize)."""
     if prefer_native:
-        return NativeBamReader(path)
+        return NativeBamReader(path, lazy=lazy)
     from pisces_tpu_torch.io.bam import BamReader
-    return BamReader(path)
-
-
-def _bind_pileup(lib):
-    if getattr(lib, "_pileup_bound", False):
-        return
-    lib.bam_pileup_mm.restype = ctypes.c_int64
-    lib.bam_pileup_mm.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.POINTER(ctypes.c_int8),
-        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int]
-    lib.pileup_n_mismatches.restype = ctypes.c_int64
-    lib.pileup_n_mismatches.argtypes = [ctypes.c_void_p]
-    lib.pileup_has_pos_tuples.restype = ctypes.c_int64
-    lib.pileup_has_pos_tuples.argtypes = [ctypes.c_void_p]
-    lib.pileup_gvcf_unique.restype = ctypes.c_int64
-    lib.pileup_gvcf_unique.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int64]
-    lib.pileup_n_uniq.restype = ctypes.c_int64
-    lib.pileup_n_uniq.argtypes = [ctypes.c_void_p]
-    for name, ct in [("pileup_mm_gpos", ctypes.c_int64),
-                     ("pileup_mm_alt", ctypes.c_int8),
-                     ("pileup_mm_dir", ctypes.c_int8),
-                     ("pileup_mm_flags", ctypes.c_int8),
-                     ("pileup_block_keys", ctypes.c_int64),
-                     ("pileup_counts_t", ctypes.c_int32),
-                     ("pileup_qual_t", ctypes.c_double),
-                     ("pileup_anchored_counts", ctypes.c_int32),
-                     ("pileup_anchored_quals", ctypes.c_double),
-                     ("pileup_pos_tuples", ctypes.c_int32),
-                     ("pileup_sel_positions", ctypes.c_int64),
-                     ("pileup_uniq_tuples", ctypes.c_int32),
-                     ("pileup_uniq_inv", ctypes.c_int32)]:
-        fn = getattr(lib, name)
-        fn.restype = ctypes.POINTER(ct)
-        fn.argtypes = [ctypes.c_void_p]
-    lib._pileup_bound = True
+    return BamReader(path, lazy=lazy)
 
 
 def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
@@ -418,8 +513,8 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
         raise ValueError(f"keep has {len(keep)} entries; the reader's last "
                          f"fetch decoded {reader._n_decoded} reads")
     lib = reader._lib
-    _bind_pileup(lib)
-    pileup_calls += 1
+    with _count_lock:
+        pileup_calls += 1
     h = reader._h
     keep_u8 = np.ascontiguousarray(keep, dtype=np.uint8)
     if anchored_positions is None or len(anchored_positions) == 0:
@@ -473,25 +568,6 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
     return pc, mismatches
 
 
-def _bind_render(lib) -> None:
-    if getattr(lib, "_render_bound", False):
-        return
-    lib.render_ref_lines.restype = ctypes.c_void_p
-    lib.render_ref_lines.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_int64)]
-    lib.rl_blob_len.restype = ctypes.c_int64
-    lib.rl_blob_len.argtypes = [ctypes.c_void_p]
-    lib.rl_blob.restype = ctypes.c_void_p
-    lib.rl_blob.argtypes = [ctypes.c_void_p]
-    lib.rl_line_off.restype = ctypes.POINTER(ctypes.c_int64)
-    lib.rl_line_off.argtypes = [ctypes.c_void_p]
-    lib.rl_free.argtypes = [ctypes.c_void_p]
-    lib._render_bound = True
-
-
 class _RenderedBlobOwner:
     """Owns a render_ref_lines result: exposes the blob as a zero-copy
     memoryview and frees the native buffer when the last Python reference
@@ -532,7 +608,6 @@ def render_reference_lines(prefix: str, positions: np.ndarray,
     if n and (int(np.min(inv)) < 0 or int(np.max(inv)) >= len(tails)):
         raise ValueError(f"inv must index the {len(tails)} tails")
     lib = get_lib()
-    _bind_render(lib)
     pos = np.ascontiguousarray(positions, dtype=np.int64)
     inv_c = np.ascontiguousarray(inv, dtype=np.int32)
     bases_c = np.ascontiguousarray(bases, dtype=np.uint8)
@@ -548,3 +623,28 @@ def render_reference_lines(prefix: str, positions: np.ndarray,
         tail_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
     owner = _RenderedBlobOwner(lib, h, n)
     return owner.mv, owner.off, owner
+
+
+def bgzf_compress_parallel(data, level: int = 6, n_threads: int = 0):
+    """Deflate a byte buffer into BGZF across C++ threads (the reference's
+    BamWriterMultithreaded): fixed 0xFF00-byte chunks, then the EOF block,
+    as io/bgzf.compress_with_offsets cuts them. Returns (compressed bytes,
+    int64 file offset of each block and of the EOF block): a byte at
+    uncompressed offset u has the virtual offset
+    (offsets[u // 0xFF00] << 16) | (u % 0xFF00). n_threads 0 takes the
+    CPU count (at most 16); raises RuntimeError if zlib fails."""
+    lib = get_lib()
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    h = lib.bgzf_compress(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                          len(buf), level, n_threads)
+    if not h:
+        raise RuntimeError("bgzf_compress failed")
+    try:
+        nb = lib.bgzfc_n_blocks(h)
+        out = ctypes.string_at(lib.bgzfc_data(h), lib.bgzfc_data_len(h))
+        offs = _as_array(lib.bgzfc_block_off(h), nb + 1, np.int64)
+    finally:
+        lib.bgzfc_free(h)
+    return out, offs

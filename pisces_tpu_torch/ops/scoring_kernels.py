@@ -36,6 +36,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, Optional
 
@@ -70,13 +71,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 # kernel launches since the last reset, counted by the wrapper where it
-# launches (chip_smoke.py reads them to show the main path used the kernel)
+# launches (chip_smoke.py reads them to show the main path used the kernel),
+# under _count_lock: scheduler and window threads launch concurrently
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+_count_lock = threading.Lock()
+# the first build: two threads that start it at once would each run nvcc
+_build_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +415,12 @@ def build_kernels() -> KernelLibrary:
     Each .so goes into pisces_tpu_torch/build/, named by a hash of its
     source, the shared header and the flags, so an edited source never
     loads a stale build. Missing libraries build in parallel, one nvcc per
-    source; a failed build raises."""
+    source; a failed build raises. Threads build once, under a lock."""
+    with _build_lock:
+        return _build_kernels()
+
+
+def _build_kernels() -> KernelLibrary:
     global _library
     if _library is not None:
         return _library
@@ -501,7 +512,8 @@ def _launch(name: str, inputs, n: int, params: ScoringParams) -> torch.Tensor:
                       device=inputs[0].device)
     if n > 0:
         build_kernels().bind(name, inputs, out, params)()
-        launch_counts[name] += 1
+        with _count_lock:
+            launch_counts[name] += 1
     return out
 
 

@@ -304,6 +304,29 @@ def test_compare_vcf_bodies_catches_differences():
             torch_entry.compare_vcf_bodies(bad, [line])
 
 
+def test_compare_vcf_files_catches_differences(tmp_path):
+    """The streamed file comparison (chip_smoke.py's WGS phase) holds the
+    same rule as compare_vcf_bodies across its steps of lines."""
+    line = ("chr1\t5\t.\tA\t.\t100\tPASS\tDP=50\tGT:GQ:AD:DP:VF:NL:SB\t"
+            "0/0:100:50:50:0.000:20:-10.0000\n")
+
+    def vcf(name, body, header="##fileformat=VCFv4.1\n#CHROM\n"):
+        path = tmp_path / name
+        path.write_text(header + "".join(body))
+        return str(path)
+
+    want = vcf("want", [line] * 10)
+    near = [line] * 9 + [line.replace("-10.0000", "-10.0005")]
+    assert torch_entry.compare_vcf_files(
+        vcf("near", near, "##other\n#CHROM\n"), want, lines_per_step=3) == 10
+    for bad in ([line] * 9, [line] * 11,
+                [line] * 9 + [line.replace("PASS", "q30")],
+                [line] * 9 + [line.replace("-10.0000", "-10.0100")], []):
+        with pytest.raises(AssertionError):
+            torch_entry.compare_vcf_files(vcf("bad", bad), want,
+                                          lines_per_step=4)
+
+
 def _port_sources():
     pkg = os.path.join(REPO, "pisces_tpu_torch")
     for root, _dirs, files in os.walk(pkg):
@@ -335,7 +358,9 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, pisces_tpu_torch.apps.pisces, "
             "pisces_tpu_torch.ops.scoring_kernels, "
-            "pisces_tpu_torch.parallel.sharding, pisces_tpu_torch.entry; "
+            "pisces_tpu_torch.parallel.sharding, pisces_tpu_torch.entry, "
+            "pisces_tpu_torch.io.bai, pisces_tpu_torch.parallel.scheduler, "
+            "pisces_tpu_torch.synthetic; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pisces_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -354,8 +379,7 @@ def test_main_without_cuda_raises_unless_cpu(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-MultiHost", "true"], ["-MultiProcess", "true"],
-    ["-MaxThreads", "2"], ["-WindowSize", "5000"], ["-CallMNVs", "true"],
+    ["-MultiHost", "true"], ["-CallMNVs", "true"],
     ["-CoverageMethod", "exact"], ["-ploidy", "diploid"],
     ["-abfilter", "0.01"], ["-PriorsPath", "p.vcf"],
 ])

@@ -398,9 +398,14 @@ def test_open_bam_never_falls_back(workload, tmp_path):
     assert type(native.open_bam(bam, prefer_native=False)) is BamReader
     with pytest.raises(IOError, match="failed to open"):
         native.open_bam(str(tmp_path / "missing.bam"))
-    for kw in ({"lazy": True}, {"prefer_native": False, "lazy": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            native.open_bam(bam, **kw)
+    # a lazy handle of either reader needs the .bai, which this BAM lacks
+    # (a whole-file reader's region fetch does not)
+    for prefer_native, kind in ((True, native.NativeBamReader),
+                                (False, BamReader)):
+        lazy = native.open_bam(bam, prefer_native, lazy=True)
+        assert type(lazy) is kind
+        with pytest.raises(IOError, match=r"needs .*\.bai"):
+            lazy.fetch_region(0, 0, 1_000)
     assert isinstance(native.NativeBamReader(bam).fetch(ref_id=0), ReadBatch)
 
 
