@@ -63,6 +63,30 @@ its result lines:
      each run's wall, reads/s, windows, peak RSS (the child's rusage,
      beside that of a child that only opens the CUDA context), stages,
      counters and device watermark (-metricsjson) are logged;
+  D. multi-host — phase B's workload through run_local_multihost: two
+     worker processes joined by torch.distributed (gloo on 127.0.0.1),
+     both on the one card, each with its own CUDA context; then the SIGKILL
+     arm (worker 1 killed after its first shard, host 0 steals the rest).
+     Each merged body must be byte-equal to phase B's serial body, and every
+     surviving worker must report its own tuple-kernel launches;
+  E. ploidies — phase 3's workload through the CLI with -ploidy diploid
+     (the whole chromosome) and -ploidy adaptive (20 kb of it, inside
+     -IntervalPaths: the adaptive object path genotypes every reference
+     locus in Python), each with -backend torch and -backend numpy, which
+     must give byte-equal bodies; the candidate batches that reached the
+     device are counted; then apps/accuracy.run_germline (thresholding
+     and adaptive) on the card, whose recall, precision and genotype
+     concordance must each be at least 0.95;
+  F. the EM at genome scale — 4M (AD, DP) observations of a seeded
+     3-component binomial mixture: fit_mixture_model_torch on the card,
+     timed; on the first 1M (the CPU takes about a minute for 4M) the
+     card's fit is held against the same function on the CPU within 1e-4,
+     and on the first 100k against the f64 numpy EM within 5e-3; then
+     satellites/adaptive_gt.recalibrate on a 10,000-locus germline VCF of
+     that mixture with backend torch (on the card) and numpy, whose bodies
+     must be equal;
+     Phase E runs right after phase A, on its workload, and phase D right
+     after phase B; phase F runs last;
   6. timing — each kernel on the main path's tuples, 200,000 random tuples
      and each mesh's first tile: the wrapper's time (CUDA events over 50
      back-to-back calls), the kernel's device-only time (torch.profiler's
@@ -121,6 +145,20 @@ SCHED_RUNS = ((), ("-MaxThreads", "4"),
 WGS_READS = 3_300_000
 WGS_LEN = 11_000_000
 WGS_WINDOW = 2_000_000
+# phase D: the SIGKILL arm's pause before each chromosome (so the kill lands
+# between a worker's two) and host 0's wait without shard progress
+MH_DELAY_S = 2.0
+MH_STALL_S = 3.0
+# phase E: the adaptive runs' 20 kb of phase 3's chromosome (the object path
+# genotypes each reference locus in Python, about half a millisecond each)
+ADAPTIVE_REGION = (50_001, 70_000)
+# phase F: a germline WGS VCF holds about 4-5M sites
+EM_OBS = 4_000_000
+EM_CPU_OBS = 1_000_000
+EM_NUMPY_OBS = 100_000
+EM_MEANS = (0.01, 0.45, 0.95)
+EM_WEIGHTS = (0.6, 0.3, 0.1)
+RECAL_LOCI = 10_000
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): f32 outside the tensor cores, and HBM3 bandwidth
@@ -494,6 +532,7 @@ def run_main_path(work: str, device):
     from pisces_tpu_torch.io import native
     from pisces_tpu_torch.ops import scoring_kernels as K
     from pisces_tpu_torch.synthetic import write_synthetic_workload
+    from pisces_tpu_torch.utils.metrics import metrics
 
     t0 = time.perf_counter()
     bam, genome = write_synthetic_workload(work, 1, CHROM_LEN, N_READS,
@@ -536,6 +575,7 @@ def run_main_path(work: str, device):
         K.score_reference_tuples = launch
     launches = dict(K.launch_counts)
     pileups = native.pileup_calls
+    counters = metrics.snapshot()["counters"]
     peak = torch.cuda.max_memory_allocated(device)
     if pileups != 1:
         raise AssertionError(f"the main path ran the native pileup {pileups} "
@@ -546,7 +586,11 @@ def run_main_path(work: str, device):
     main_tuples = sum(t.shape[0] for t, _ in seen)
     log(f"main path (native flow): native_pileup ran {pileups} time(s), "
         f"score_tuples launched {launches['score_tuples']} time(s) on "
-        f"{main_tuples:,} unique tuples")
+        f"{main_tuples:,} unique tuples; "
+        f"{counters.get('candidate_batches_on_device', 0):.0f} candidate "
+        f"batch(es) of {counters.get('candidates_scored', 0):,.0f} "
+        f"candidates reached the device threshold "
+        f"({counters.get('candidates_on_device', 0):,.0f} candidates)")
 
     native.reset_pileup_calls()
     host_wall, host_stages, host = _run_cli(app, bam, genome,
@@ -784,7 +828,8 @@ def run_windowed_path(work: str, device, whole_body):
 
 
 def run_scheduler_paths(work: str):
-    """Phase B. Returns each run's record."""
+    """Phase B. Returns (each run's record, the BAM, the genome directory,
+    the serial VCF body)."""
     import pisces_tpu_torch.apps.pisces as app
     from pisces_tpu_torch.io import native
     from pisces_tpu_torch.ops import scoring_kernels as K
@@ -827,7 +872,7 @@ def run_scheduler_paths(work: str):
             f"{r['pileups']} and score_tuples {r['launches']} time(s) in "
             f"this process; {len(body):,} lines"
             + ("" if i == 0 else ", byte-equal to the serial run"))
-    return runs
+    return runs, bam, genome, serial
 
 
 # runs argv[1:] and prints its peak RSS from its rusage (wait4). A child's
@@ -923,6 +968,218 @@ def run_wgs_path(work: str):
     log(f"WGS: {n:,} gVCF lines, -backend torch agrees with -backend "
         "numpy (reference-line SB within 1e-3 dB above -40 dB and 5% "
         "below)")
+
+
+# ---------------------------------------------------------------------------
+# Phases D-F: multi-host, ploidies, the EM
+# ---------------------------------------------------------------------------
+
+def _worker_launches(out_dir: str, worker: int):
+    """The tuple-kernel launches a multi-host worker reported in its last
+    line, or None when it printed none (it was killed)."""
+    with open(os.path.join(out_dir, f"multihost_worker{worker}.log")) as f:
+        found = [ln.rsplit("score_tuples_launches=", 1)[1]
+                 for ln in f.read().splitlines()
+                 if "score_tuples_launches=" in ln]
+    return int(found[-1]) if found else None
+
+
+def run_multihost_paths(work: str, bam: str, genome: str, serial_body):
+    """Phase D on phase B's workload. Returns each run's record."""
+    from pisces_tpu_torch.entry import vcf_body
+    from pisces_tpu_torch.parallel.multihost import run_local_multihost
+
+    runs = []
+    for name, kw in (("multihost 2 processes", {}),
+                     ("multihost SIGKILL arm",
+                      {"kill_worker": 1, "recover_stall_s": MH_STALL_S,
+                       "delay_per_chr": MH_DELAY_S})):
+        out = os.path.join(work, name.split()[-1])
+        t0 = time.perf_counter()
+        merged = run_local_multihost(bam, genome, out, n_procs=2, gvcf=True,
+                                     timeout_s=600, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        body = vcf_body(merged)
+        if body != serial_body:
+            raise AssertionError(f"{name}: merged VCF body differs from "
+                                 "phase B's serial body")
+        launches = [_worker_launches(out, i) for i in range(2)]
+        survivors = [n for i, n in enumerate(launches)
+                     if i != kw.get("kill_worker")]
+        if any(n is None or n < 1 for n in survivors):
+            raise AssertionError(f"{name}: a surviving worker launched "
+                                 f"score_tuples {launches} times")
+        runs.append({"run": name, "wall_s": wall,
+                     "launches": sum(survivors), "by_worker": launches})
+        log(f"{name}: {wall:.2f} s ({SCHED_READS / wall:,.0f} reads/s) for "
+            "two workers on the one card (each importing torch and opening "
+            f"its CUDA context); score_tuples launches by worker {launches}"
+            + (" (worker 1 killed after its first shard, so its count is "
+               "lost; host 0's includes the stolen chromosome)"
+               if "kill_worker" in kw else "")
+            + f"; merged body byte-equal to the serial run's "
+            f"({len(body):,} lines)")
+    return runs
+
+
+def _germline_ok(name: str, res) -> None:
+    for z, r in res.items():
+        if min(r.recall, r.precision, r.gt_concordance) < 0.95:
+            raise AssertionError(
+                f"{name} {z}: recall {r.recall:.3f}, precision "
+                f"{r.precision:.3f}, GT concordance {r.gt_concordance:.3f}; "
+                "want each at least 0.95")
+        log(f"{name} {z}: recall {r.recall:.3f}, precision "
+            f"{r.precision:.3f}, GT concordance {r.gt_concordance:.3f} "
+            f"(tp={r.tp} gt_err={r.gt_err} fn={r.fn} fp={r.fp})")
+
+
+def run_ploidy_paths(work: str, device):
+    """Phase E on phase 3's workload. Returns each run's record."""
+    import pisces_tpu_torch.apps.pisces as app
+    from pisces_tpu_torch.apps.accuracy import run_germline
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.utils.metrics import metrics
+
+    bam = os.path.join(work, "b.bam")
+    genome = os.path.join(work, "genome")
+    region = os.path.join(work, "adaptive.picard")
+    with open(region, "w") as f:
+        f.write("@HD\tVN:1.6\nchr1\t%d\t%d\n" % ADAPTIVE_REGION)
+    runs = []
+    for ploidy, extra in (("diploid", ()),
+                          ("adaptive", ("-IntervalPaths", region))):
+        bodies = {}
+        for backend in ("torch", "numpy"):
+            K.reset_launch_counts()
+            wall, stages, bodies[backend] = _run_cli(
+                app, bam, genome, os.path.join(work, f"{ploidy}_{backend}"),
+                backend, ("-ploidy", ploidy, *extra))
+            counters = metrics.snapshot()["counters"]
+            r = {"run": f"ploidy {ploidy} -backend {backend}",
+                 "wall_s": wall, "stages": stages,
+                 "launches": K.launch_counts["score_tuples"],
+                 "device_batches": counters.get(
+                     "candidate_batches_on_device", 0),
+                 "device_candidates": counters.get("candidates_on_device", 0),
+                 "candidates": counters.get("candidates_scored", 0)}
+            runs.append(r)
+            log(f"{r['run']}{' in ' + region if extra else ''}: "
+                f"{wall:.2f} s, {len(bodies[backend]):,} lines; "
+                f"score_tuples launched {r['launches']} time(s) (reference "
+                "lines: diploid on the f64 host twin, adaptive on the "
+                f"object path); {r['device_batches']:.0f} candidate "
+                f"batch(es) of {r['candidates']:,.0f} candidates reached the "
+                f"device ({r['device_candidates']:,.0f} candidates)")
+        if bodies["torch"] != bodies["numpy"]:
+            raise AssertionError(f"-ploidy {ploidy}: -backend torch and "
+                                 "-backend numpy bodies differ")
+        gts = {ln.split("\t")[9].split(":")[0] for ln in bodies["torch"]}
+        if not gts & {"0/1", "1/1"}:
+            raise AssertionError(f"-ploidy {ploidy}: no diploid variant "
+                                 "genotypes")
+        log(f"-ploidy {ploidy}: -backend torch body byte-equal to -backend "
+            "numpy")
+    for is_adaptive in (False, True):
+        name = "germline " + ("adaptive" if is_adaptive else "thresholding")
+        t0 = time.perf_counter()
+        res = run_germline(os.path.join(work, name.split()[-1]),
+                           adaptive=is_adaptive, device=device)
+        runs.append({"run": name, "wall_s": time.perf_counter() - t0})
+        log(f"{name} (run_germline: generation and the call on the card): "
+            f"{runs[-1]['wall_s']:.2f} s")
+        _germline_ok(name, res)
+    return runs
+
+
+def _mixture(n: int):
+    """(ad, dp): n draws of the 3-component binomial mixture, dp in
+    20-300, from SEED."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    comps = rng.choice(3, size=n, p=list(EM_WEIGHTS))
+    dp = rng.integers(20, 301, size=n)
+    return rng.binomial(dp, np.asarray(EM_MEANS)[comps]), dp
+
+
+def _germline_vcf(path: str, ad, dp) -> None:
+    """A germline VCF of one locus per observation on chr1 (reference
+    lines where ad < 2), the shape AdaptiveGT reads."""
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.1\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS1\n")
+        for k, (a, d) in enumerate(zip(ad.tolist(), dp.tolist())):
+            alt = "AT" if k % 7 == 0 else "T"
+            if a < 2:
+                alt, ad_s, gt = ".", str(d - a), "0/0"
+            else:
+                ad_s, gt = f"{d - a},{a}", ("1/1" if a > 0.75 * d else "0/1")
+            f.write(f"chr1\t{100 + 3 * k}\t.\tA\t{alt}\t100\tPASS\tDP={d}\t"
+                    f"GT:GQ:AD:DP:VF:NL:SB\t{gt}:100:{ad_s}:{d}:"
+                    f"{a / d:.3f}:20:-100.0000\n")
+
+
+def run_em_path(work: str, device):
+    """Phase F. Returns the record of its times."""
+    import numpy as np
+    import torch
+    from pisces_tpu_torch.entry import vcf_body
+    from pisces_tpu_torch.genotype import adaptive
+    from pisces_tpu_torch.satellites import adaptive_gt
+
+    os.makedirs(work, exist_ok=True)
+    ad, dp = _mixture(EM_OBS)
+    # the first call pays torch's lazy CUDA set-up; the second is timed
+    adaptive.fit_mixture_model_torch(ad[:1000], dp[:1000], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means, weights = adaptive.fit_mixture_model_torch(ad, dp, device=device)
+    em_s = time.perf_counter() - t0
+    m1, w1 = adaptive.fit_mixture_model_torch(
+        ad[:EM_CPU_OBS], dp[:EM_CPU_OBS], device=device)
+    t0 = time.perf_counter()
+    mc, wc = adaptive.fit_mixture_model_torch(
+        ad[:EM_CPU_OBS], dp[:EM_CPU_OBS], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err_cpu = max(np.abs(m1 - mc).max(), np.abs(w1 - wc).max())
+    if err_cpu > 1e-4:
+        raise AssertionError(f"EM on the card differs from the CPU by "
+                             f"{err_cpu}")
+    m2, w2 = adaptive.fit_mixture_model_torch(
+        ad[:EM_NUMPY_OBS], dp[:EM_NUMPY_OBS], device=device)
+    t0 = time.perf_counter()
+    fit = adaptive.fit_mixture_model(ad[:EM_NUMPY_OBS], dp[:EM_NUMPY_OBS])
+    np_s = time.perf_counter() - t0
+    err_np = max(np.abs(m2 - fit.means).max(), np.abs(w2 - fit.weights).max())
+    if err_np > 5e-3:
+        raise AssertionError(f"EM on the card differs from the f64 numpy EM "
+                             f"by {err_np}")
+    log(f"EM: {EM_OBS:,} observations, 200 steps on the card in "
+        f"{em_s * 1e3:.1f} ms (transfer and result included); means "
+        f"{[round(float(x), 5) for x in means]}, weights "
+        f"{[round(float(x), 5) for x in weights]}; on {EM_CPU_OBS:,}: card vs CPU "
+        f"within {err_cpu:.2e} (CPU {cpu_s:.2f} s); on {EM_NUMPY_OBS:,}: card "
+        f"vs f64 numpy EM ({np_s:.2f} s) within {err_np:.2e}")
+
+    bodies, walls = {}, {}
+    for backend in ("torch", "numpy"):
+        d = os.path.join(work, backend)
+        os.makedirs(d, exist_ok=True)
+        vcf = os.path.join(d, "germline.vcf")
+        _germline_vcf(vcf, ad[:RECAL_LOCI], dp[:RECAL_LOCI])
+        t0 = time.perf_counter()
+        out = adaptive_gt.recalibrate(vcf, d, backend=backend, device=device)
+        walls[backend] = time.perf_counter() - t0
+        bodies[backend] = vcf_body(out)
+    if bodies["torch"] != bodies["numpy"] or not bodies["torch"]:
+        raise AssertionError("adaptive_gt.recalibrate: -backend torch and "
+                             "numpy bodies differ")
+    log(f"adaptive_gt.recalibrate on {RECAL_LOCI:,} loci: torch (card) "
+        f"{walls['torch']:.2f} s, numpy {walls['numpy']:.2f} s; "
+        f"{len(bodies['torch']):,} recalibrated lines, byte-equal")
+    return {"em_ms": em_s * 1e3, "cpu_s": cpu_s, "numpy_s": np_s,
+            "err_cpu": float(err_cpu), "err_numpy": float(err_np),
+            "recal_s": walls}
 
 
 # ---------------------------------------------------------------------------
@@ -1050,13 +1307,20 @@ def main_smoke() -> int:
 
         # phase A: the main path's chromosome in windows
         win_runs = run_windowed_path(work, device, e2e.pop("body"))
+
+        # phase E: the ploidies on the same workload, then the germline
+        # harness
+        ploidy_runs = run_ploidy_paths(work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # phase B: the schedulers
+    # phase B: the schedulers; phase D: multi-host on the same workload
     work = os.path.join(REPO, "build", "chip_smoke_sched")
     try:
-        sched_runs = run_scheduler_paths(work)
+        sched_runs, sched_bam, sched_genome, serial = \
+            run_scheduler_paths(work)
+        mh_runs = run_multihost_paths(work, sched_bam, sched_genome, serial)
+        del serial
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1064,6 +1328,13 @@ def main_smoke() -> int:
     work = os.path.join(REPO, "build", "chip_smoke_wgs")
     try:
         run_wgs_path(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # phase F: the EM at genome scale and the AdaptiveGT satellite
+    work = os.path.join(REPO, "build", "chip_smoke_em")
+    try:
+        em = run_em_path(work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1109,7 +1380,11 @@ def main_smoke() -> int:
                       for k, v in r["stages"].items()) +
             f"; {r['stats']}")
     log(f"peak device memory (main path): {e2e['peak_bytes'] / 2**20:.1f} MiB")
-    for r in win_runs + sched_runs:
+    for r in mh_runs:
+        log(f"{r['run']}: {r['wall_s']:.2f} s against {sched_runs[0]['wall_s']:.2f}"
+            f" s serial (phase B)")
+    log(f"EM at {EM_OBS:,} observations on the card: {em['em_ms']:.1f} ms")
+    for r in win_runs + sched_runs + ploidy_runs:
         if r.get("stages"):
             log(f"stages ({r['run']}): " + ", ".join(
                 f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
@@ -1128,7 +1403,9 @@ def main_smoke() -> int:
         "launches": launches["score_tuples"],
         "launches_by_path": {
             "main": launches["score_tuples"],
-            **{r["run"]: r["launches"] for r in win_runs + sched_runs}},
+            **{r["run"]: r["launches"]
+               for r in win_runs + sched_runs + mh_runs + ploidy_runs
+               if "launches" in r}},
         "max_abs_err": err["score_tuples"],
         "ms": t["ms"],
         "device_ms": t["device_ms"],

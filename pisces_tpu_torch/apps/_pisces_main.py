@@ -150,7 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
            "over a mesh of N devices of -device's type (with cuda, N "
            "cards); 0 or 1 = single device")
     a("-multihost", default="false",
-      help="run as one process of a multi-host job (not yet ported)")
+      help="run as one process of a torch.distributed multi-host job "
+           "(coordinator/pid via JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, "
+           "JAX_PROCESS_ID, as the reference package reads them); "
+           "chromosomes partition across hosts, host 0 merges the "
+           "per-chromosome shards")
     a("-profiledir", default=None,
       help="capture a torch.profiler trace (Chrome trace format) of the "
            "run into this directory")

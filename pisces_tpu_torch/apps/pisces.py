@@ -7,18 +7,21 @@ scoring, VCF/gVCF output.
 
 The port runs chromosomes through the native read flow (the C++ BAM decode
 and pileup pass of io/native, as the reference package's default run), with
-somatic ploidy, the default filters, optional -IntervalPaths, -WindowSize
-streaming over the .bai, the schedulers of parallel/scheduler.py
-(-MaxThreads, several BAMs, -ThreadByChr, -MultiProcess with -Resume) and
--MeshDevices N (the gVCF reference scoring and large candidate batches
-sharded over N devices of -device's type, parallel/sharding.py, from Python
-read events). Options outside it raise NotImplementedError naming the
-ROADMAP item that ports them.
+somatic, diploid (-ploidy diploid) and adaptive (-ploidy adaptive)
+genotyping, haploid on the sex chromosomes with -gender, the
+default filters, optional -IntervalPaths, -WindowSize streaming over the
+.bai, the schedulers of parallel/scheduler.py (-MaxThreads, several BAMs,
+-ThreadByChr, -MultiProcess with -Resume), -MultiHost (one process of a
+multi-host job, parallel/multihost.py) and -MeshDevices N (the gVCF
+reference scoring and large candidate batches sharded over N devices of
+-device's type, parallel/sharding.py, from Python read events). Options
+outside it raise NotImplementedError naming the ROADMAP item that ports
+them.
 
     python -m pisces_tpu_torch.apps.pisces -bam B -g G -o O -gVCF true \\
-        [-device cuda|cpu] [-backend torch|numpy] [-MeshDevices N] \\
-        [-WindowSize W] [-MaxThreads T [-ThreadByChr true]] \\
-        [-MultiProcess true [-Resume true]]
+        [-device cuda|cpu] [-backend torch|numpy] [-ploidy P [-gender G]] \\
+        [-MeshDevices N] [-WindowSize W] [-MaxThreads T [-ThreadByChr true]] \\
+        [-MultiProcess true [-Resume true]] [-MultiHost true]
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from pisces_tpu_torch.calling.caller import (
 )
 from pisces_tpu_torch.calling.collapser import VariantCollapser
 from pisces_tpu_torch.calling.source import AlleleSource
+from pisces_tpu_torch.genotype import get_ploidy_for_chr
 from pisces_tpu_torch.options import PiscesApplicationOptions
 from pisces_tpu_torch.pileup.candidates import find_candidates_batch
 from pisces_tpu_torch.pileup.candidates_fast import (
@@ -66,8 +70,6 @@ def check_ported(options: PiscesApplicationOptions) -> None:
     """Raise for the options this slice of the port does not run."""
     v = options.variant_calling_parameters
     w = options.vcf_writing_parameters
-    if v.ploidy_model != PloidyModel.SOMATIC:
-        raise _not_ported(f"ploidy {v.ploidy_model.name}", 6)
     checks = [
         (options.call_mnvs, "-CallMNVs"),
         (v.amplicon_bias_filter_threshold is not None, "amplicon bias"),
@@ -85,13 +87,18 @@ def check_ported(options: PiscesApplicationOptions) -> None:
 
 
 def _fast_gvcf_eligible(options: PiscesApplicationOptions) -> bool:
-    """Whether the columnar fast-gVCF reference path applies: gVCF output
-    with no LowGQ filter threshold (which needs the per-allele filter
-    pass)."""
+    """Whether the columnar fast-gVCF reference path applies: gVCF output,
+    somatic or diploid-thresholding ploidy (the tuple kernel implements
+    somatic ref-line GT/GQ, diploid thresholding has a vectorized f64 host
+    twin, fast_gvcf._score_host_tuples_diploid; haploid and adaptive ploidy
+    go through the object path) and no LowGQ filter threshold (which needs
+    the per-allele filter pass)."""
+    v = options.variant_calling_parameters
     return (options.vcf_writing_parameters.output_gvcf_file
             and options.use_fast_gvcf
-            and options.variant_calling_parameters
-            .low_genotype_quality_filter is None)
+            and v.ploidy_model in (PloidyModel.SOMATIC,
+                                   PloidyModel.DIPLOID_BY_THRESHOLDING)
+            and v.low_genotype_quality_filter is None)
 
 
 def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
@@ -178,7 +185,14 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                     anchored_positions=anchor_positions)
     source = AlleleSource(pc)
 
-    fast_gvcf = _fast_gvcf_eligible(options)
+    # effective ploidy is per chromosome (chrM always somatic; sex
+    # chromosomes go haploid with -gender — GenotypeCreator
+    # .GetPloidyForThisChr); only somatic/diploid ref rules are columnar
+    v = options.variant_calling_parameters
+    eff_ploidy = get_ploidy_for_chr(v.ploidy_model, v.is_male, chrom.name)
+    fast_gvcf = (_fast_gvcf_eligible(options)
+                 and eff_ploidy in (PloidyModel.SOMATIC,
+                                    PloidyModel.DIPLOID_BY_THRESHOLDING))
     if options.vcf_writing_parameters.output_gvcf_file and not fast_gvcf:
         candidates = candidates + make_reference_candidates(
             chrom.name, chrom.sequence, pc, intervals)
@@ -201,7 +215,6 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
             format_reference_lines, score_reference_positions,
         )
         from pisces_tpu_torch.ops.scoring_params import ScoringParams
-        v = options.variant_calling_parameters
         params = ScoringParams(
             noise_level=v.noise_level_used_for_q_scoring,
             max_variant_qscore=v.maximum_variant_qscore,
@@ -217,8 +230,13 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
             max_gq=v.maximum_genotype_qscore,
             sb_acceptance=v.strand_bias_acceptance_criteria,
             no_call_filter=v.no_call_filter_threshold)
+        diploid_params = (v.diploid_snv_thresholding_parameters
+                          if eff_ploidy == PloidyModel.DIPLOID_BY_THRESHOLDING
+                          else None)
         with metrics.stage("gvcf_scoring"):
-            if mesh is not None:
+            # the mesh scores somatic reference lines only; diploid ones
+            # take the f64 host twin
+            if mesh is not None and diploid_params is None:
                 from pisces_tpu_torch.parallel.sharding import (
                     sharded_score_reference_positions,
                 )
@@ -230,13 +248,13 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
             else:
                 positions, scored = score_reference_positions(
                     pc, chrom.sequence, params, device=device,
-                    intervals=intervals)
+                    intervals=intervals, diploid_snv_params=diploid_params)
         metrics.count("loci_scored", len(positions))
         metrics.device_watermark(device)
         if scored is not None:
             # loci whose ref allele was suppressed by a coexisting variant
-            # that genotyping later pruned entirely emit NOTHING — mirror
-            # the object path's locus pruning
+            # that genotyping later pruned entirely (diploid sub-threshold
+            # case) emit NOTHING — mirror the object path's locus pruning
             suppressed = caller.ref_suppressed_positions - {
                 p for p, lst in by_position.items() if lst}
             if suppressed:
@@ -530,8 +548,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(_normalize(raw))
     options = options_from_args(args, raw)
     bam_paths = options.bam_paths
-    if _b(args.multihost):
-        raise _not_ported("-MultiHost", 5)
     check_ported(options)
     device = resolve_device(args.device)
 
@@ -551,7 +567,16 @@ def main(argv=None) -> int:
 
     def _execute_inner() -> None:
         from pisces_tpu_torch.parallel import scheduler
-        if _b(args.multiprocess) and not _b(args.insidesubprocess):
+        if _b(args.multihost):
+            from pisces_tpu_torch.parallel.multihost import (
+                process_bam_multihost,
+            )
+            for bam_path in bam_paths:
+                out = process_bam_multihost(options, bam_path, args.genome,
+                                            device, args.backend)
+                if out:
+                    log(f"wrote {out}")
+        elif _b(args.multiprocess) and not _b(args.insidesubprocess):
             for bam_path in bam_paths:
                 out = scheduler.process_chromosomes_multiprocess(
                     options, bam_path, args.genome, args.max_threads,

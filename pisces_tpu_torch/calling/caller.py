@@ -365,6 +365,9 @@ class AlleleCaller:
         from pisces_tpu_torch.ops.torch_scoring import (
             ScoringParams, score_snv_loci,
         )
+        from pisces_tpu_torch.utils.metrics import metrics
+        metrics.count("candidate_batches_on_device", 1)
+        metrics.count("candidates_on_device", n)
         cfg = self.config
         params = ScoringParams(
             noise_level=noise_level,

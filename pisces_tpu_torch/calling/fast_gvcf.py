@@ -39,7 +39,8 @@ DEVICE_TUPLE_THRESHOLD = 4096
 
 
 def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
-                              params, device=None, intervals=None):
+                              params, device=None, intervals=None,
+                              diploid_snv_params=None):
     """Score gVCF reference loci columnar.
 
     Without intervals: every touched position with any count. With an
@@ -57,7 +58,9 @@ def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
     come from the native pileup when it ran (pc.gvcf_unique, or
     pc.pos_tuples with intervals), so the dense [L, 6, 3] tensor is never
     re-reduced in Python. `device` is the torch device that scores large
-    tuple batches; None scores on the host.
+    tuple batches; None scores on the host. With `diploid_snv_params`
+    (diploid-thresholding ploidy) every tuple scores on the f64 host twin
+    of the diploid reference-locus genotyper, whatever `device` is.
     """
     from pisces_tpu_torch.domain.types import BASE_TO_ALLELE, COVERAGE_CONTRIBUTING_ALLELES
 
@@ -96,7 +99,7 @@ def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
         if len(positions) == 0:
             return positions, None
         return _finish_scoring(positions, uniq, inv, None, refseq, params,
-                               device)
+                               device, diploid_snv_params)
     else:
         block_size = pc.block_size
         starts = (pc.block_keys - 1) * block_size + 1
@@ -119,16 +122,22 @@ def score_reference_positions(pc: PileupCounts, refseq: np.ndarray,
         pad_flag = (rows < 0).astype(np.int64)
     uniq, inv = _unique_tuples(all_support_by_dir, all_cov_by_dir, pad_flag)
     return _finish_scoring(positions, uniq, inv, pad_flag, refseq, params,
-                           device)
+                           device, diploid_snv_params)
 
 
-def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params, device):
+def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params, device,
+                    diploid_snv_params=None):
     """Score the unique tuples and assemble the per-position output dict."""
+    metrics.count("gvcf_unique_tuples", len(uniq))
+    if diploid_snv_params is not None:
+        # diploid-thresholding ref lines: vectorized f64 host twin (the
+        # tuple kernel implements somatic GT/GQ only)
+        out = _score_host_tuples_diploid(uniq[:, :3], uniq[:, 3:6], params,
+                                         diploid_snv_params)
     # device dispatch pays off only above a batch-size threshold (same
     # rationale as CallerConfig.device_batch_threshold); the f64 host path
     # is the byte-parity oracle
-    metrics.count("gvcf_unique_tuples", len(uniq))
-    if device is not None and len(uniq) >= DEVICE_TUPLE_THRESHOLD:
+    elif device is not None and len(uniq) >= DEVICE_TUPLE_THRESHOLD:
         metrics.count("gvcf_unique_tuples_on_device", len(uniq))
         from pisces_tpu_torch.ops.scoring_kernels import score_reference_tuples
         tuples = torch.from_numpy(
@@ -181,6 +190,77 @@ def _unique_tuples(support_by_dir, cov_by_dir, extra=None):
             u = u >> 10
         return uniq, inv
     return np.unique(key, axis=0, return_inverse=True)
+
+
+def _score_host_tuples_diploid(support_by_dir, cov_by_dir, params,
+                               snv_params):
+    """Vectorized diploid-thresholding twin for REFERENCE loci
+    (DiploidThresholdingGenotyper.cs:53-138 with no variant alleles +
+    DiploidGenotypeQualityCalculator.cs:17-103 HomozygousRef branch).
+    Same f64/f32 arithmetic as genotype/diploid.py, so outputs are
+    byte-identical to the object path."""
+    import math
+
+    import scipy.special as sc
+
+    from pisces_tpu_torch.ops import stats
+
+    total_cov = cov_by_dir.sum(axis=-1)
+    support = support_by_dir.sum(axis=-1)
+    q = stats.compute_variant_qscores(support, total_cov,
+                                      params.max_variant_qscore,
+                                      params.noise_level)
+    q = np.where((total_cov == 0) | (support <= 0), 0, q)
+    freq = np.where(total_cov == 0, 0.0,
+                    np.minimum(support.astype(np.float32)
+                               / np.maximum(total_cov, 1).astype(np.float32),
+                               1.0))
+    sb = stats.compute_strand_bias(support_by_dir, cov_by_dir,
+                                   params.noise_level, params.min_frequency,
+                                   params.sb_acceptance, 1)
+    gatk = np.where(support > 0, sb["gatk_bias_score"], 0.0)
+
+    minor_vf = snv_params.minor_vf
+    # CalculateDiploidGenotype for a lone reference allele: depth issue ->
+    # RefLikeNoCall; !refExists -> RefLikeNoCall; too much non-ref ->
+    # RefAndNoCall; else HomozygousRef
+    gt = np.full(len(total_cov), int(Genotype.HOMOZYGOUS_REF), np.int64)
+    gt = np.where((1.0 - freq) > minor_vf, int(Genotype.REF_AND_NOCALL), gt)
+    gt = np.where(freq < minor_vf, int(Genotype.REF_LIKE_NOCALL), gt)
+    gt = np.where(total_cov < params.min_depth,
+                  int(Genotype.REF_LIKE_NOCALL), gt)
+
+    # GQ: likelihood ratio of hom-ref noise Poisson vs het binomial over
+    # the non-allele calls (f32 parameters widened exactly like the C#)
+    non_allele = np.maximum(total_cov - support, 0)
+    depth = total_cov.astype(np.float64)
+    lam = float(np.float32(0.05)) * depth
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h0 = (non_allele * np.log(np.maximum(lam, 1e-300)) - lam
+              - sc.gammaln(non_allele + 1.0))
+        h1 = _binom_logpmf_vec(non_allele, total_cov,
+                               float(np.float32(0.40)))
+        raw = np.floor(10.0 * math.log10(math.e) * (h0 - h1))
+    gq = np.clip(np.where(np.isfinite(raw), raw, params.min_gq),
+                 params.min_gq, params.max_gq).astype(np.int64)
+    gq = np.where((total_cov == 0)
+                  | (gt != int(Genotype.HOMOZYGOUS_REF)),
+                  params.min_gq, gq)
+
+    return {
+        "total_coverage": total_cov,
+        "support": support,
+        "variant_qscore": q,
+        "frequency": freq,
+        "genotype": gt,
+        "gq": gq,
+        "sb_gatk": gatk,
+    }
+
+
+def _binom_logpmf_vec(k, n, p):
+    import scipy.stats as sps
+    return sps.binom.logpmf(k, n, p)
 
 
 def _score_host_tuples(support_by_dir, cov_by_dir, params):

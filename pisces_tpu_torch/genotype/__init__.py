@@ -70,6 +70,13 @@ def create_genotype_calculator(config, ref_name: Optional[str] = None,
                                 config.min_depth_to_genotype,
                                 config.min_gq_score, config.max_gq_score,
                                 config.target_lod_frequency)
-    raise NotImplementedError(
-        f"ploidy model {ploidy.name} is not yet ported (ROADMAP Queue 1 "
-        f"item 6); the port calls somatic ploidy only")
+    if ploidy == PloidyModel.DIPLOID_BY_THRESHOLDING:
+        from pisces_tpu_torch.genotype.diploid import DiploidThresholdingGenotyper
+        return DiploidThresholdingGenotyper(config)
+    if ploidy == PloidyModel.HAPLOID:
+        from pisces_tpu_torch.genotype.diploid import HaploidGenotyper
+        return HaploidGenotyper(config)
+    if ploidy == PloidyModel.DIPLOID_BY_ADAPTIVE_GT:
+        from pisces_tpu_torch.genotype.adaptive import DiploidAdaptiveGenotyper
+        return DiploidAdaptiveGenotyper(config)
+    raise ValueError(f"unsupported ploidy model {ploidy}")

@@ -8,9 +8,9 @@
 //
 // Build: pisces_tpu_torch/io/native.py get_lib() (g++ at first use, with
 // rmxn.cpp, into one library under pisces_tpu_torch/build/).
-// Binding: ctypes (pisces_tpu_torch/io/native.py). The lazy-region
-// (bam_open_lazy, bam_fetch_region) and BGZF compress exports are not bound
-// yet (ROADMAP Queue 1 item 2).
+// Binding: ctypes (pisces_tpu_torch/io/native.py), every export, the
+// lazy-region reader (bam_open_lazy, bam_fetch_region) and the BGZF
+// compressor (bgzf_compress) included.
 
 #include <array>
 #include <cstdint>

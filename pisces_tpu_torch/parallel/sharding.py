@@ -2,8 +2,9 @@
 
 The port of the reference package's parallel/sharding.py. The genome
 position axis is row-sharded over a mesh of devices in one process, the
-counterpart of `shard_map` over a host's local devices (a multi-process mesh
-over torch.distributed is ROADMAP Queue 1 item 5). Reads are routed to the
+counterpart of `shard_map` over a host's local devices (-MultiHost,
+parallel/multihost.py, runs no collective across processes, as in the
+reference package). Reads are routed to the
 shard owning their START position (the ownership rule of the reference's
 read-to-block ingestion, RegionStateManager.AddAlleleCounts, cs:118-220);
 each shard's PARTIAL count buffer covers [shard_start, shard_end + halo).

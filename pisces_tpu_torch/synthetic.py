@@ -18,10 +18,12 @@ def write_synthetic_workload(tmp: str, n_chroms: int, chrom_len: int,
                               n_reads: int, read_len: int = 100,
                               variant_rate: float = 0.01,
                               seed: int = 0, messy: bool = True,
-                              index: bool = False):
+                              index: bool = False, chrom_names=None):
     """Synthetic multi-chromosome BAM + genome with planted SNVs so both
     the dense gVCF path and the candidate-scoring path do real work.
     index=True also writes the BAM's .bai (the BAM bytes do not change).
+    chrom_names names the chromosomes (default chr1..chrN), e.g. to give
+    the workload a sex chromosome.
 
     messy=True (the default)
     additionally makes the read profile reference-realistic instead of
@@ -39,7 +41,8 @@ def write_synthetic_workload(tmp: str, n_chroms: int, chrom_len: int,
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(os.path.join(tmp, "genome"))
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    chroms = [f"chr{i + 1}" for i in range(n_chroms)]
+    chroms = (list(chrom_names) if chrom_names is not None
+              else [f"chr{i + 1}" for i in range(n_chroms)])
     seqs = {}
     gs = []
     for c in chroms:

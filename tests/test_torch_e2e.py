@@ -360,7 +360,11 @@ def test_port_import_leaves_jax_unloaded():
             "pisces_tpu_torch.ops.scoring_kernels, "
             "pisces_tpu_torch.parallel.sharding, pisces_tpu_torch.entry, "
             "pisces_tpu_torch.io.bai, pisces_tpu_torch.parallel.scheduler, "
-            "pisces_tpu_torch.synthetic; "
+            "pisces_tpu_torch.synthetic, pisces_tpu_torch.parallel.multihost, "
+            "pisces_tpu_torch.genotype.diploid, "
+            "pisces_tpu_torch.genotype.adaptive, pisces_tpu_torch.io.vcf_read, "
+            "pisces_tpu_torch.satellites.adaptive_gt, "
+            "pisces_tpu_torch.apps.titration, pisces_tpu_torch.apps.accuracy; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pisces_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -379,8 +383,7 @@ def test_main_without_cuda_raises_unless_cpu(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-MultiHost", "true"], ["-CallMNVs", "true"],
-    ["-CoverageMethod", "exact"], ["-ploidy", "diploid"],
+    ["-CallMNVs", "true"], ["-CoverageMethod", "exact"],
     ["-abfilter", "0.01"], ["-PriorsPath", "p.vcf"],
 ])
 def test_options_outside_the_slice_raise(workload, flags):
