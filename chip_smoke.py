@@ -85,8 +85,30 @@ its result lines:
      satellites/adaptive_gt.recalibrate on a 10,000-locus germline VCF of
      that mixture with backend torch (on the card) and numpy, whose bodies
      must be equal;
-     Phase E runs right after phase A, on its workload, and phase D right
-     after phase B; phase F runs last;
+  G. caller options — phase 3's workload through the CLI with a
+     forced-allele VCF (300 sites: called SNVs and reference loci without
+     support), a priors VCF with padded MNVs (-TrimMnvPriors true) and
+     -OutputBiasFiles true, -backend torch and numpy: score_tuples must
+     launch once in the torch run, every forced allele must be in the body,
+     the bodies must agree (reference-line SB within the phase-2 tolerance)
+     and both bias tables must be byte-equal;
+  H. tagged input — (a) stitched pairs with XD tags under a Stitcher @PG
+     line over phase 3's 200 kb (40,000 fragments, about 30x: tagged input
+     finds its candidates with the per-read state machine, as in the
+     reference) with -UseStitchedXD true, then again with -CoverageMethod
+     exact: the native pass counts with the XD directions and score_tuples
+     must launch once on tuples with non-zero stitched columns; (b) an
+     amplicon panel with XN tags (100 amplicons at 1000x) with -abfilter
+     0.01: score_tuples once, AB-filtered calls, byte-equal amplicon-bias
+     tables; (c) read-collapsed reads (XV/XW/XR, 5 kb at 300x) with
+     -ReportRcCounts true on the object gVCF path; torch and numpy bodies
+     agree in each;
+  I. MNV calling — apps/accuracy.run_mnv_accuracy (the reference bench's
+     mnv stage, direct arm: 40 haplotypes, 300x over 30 kb, seed 13) on the
+     card must give recall = precision = 1.00; then its BAM with -CallMNVs
+     and -gVCF true in 10 kb of it, torch and numpy bodies byte-equal;
+     Phase E runs right after phase A, on its workload, then phase G; phase
+     D right after phase B, then phases H and I; phase F runs last;
   6. timing — each kernel on the main path's tuples, 200,000 random tuples
      and each mesh's first tile: the wrapper's time (CUDA events over 50
      back-to-back calls), the kernel's device-only time (torch.profiler's
@@ -159,6 +181,22 @@ EM_NUMPY_OBS = 100_000
 EM_MEANS = (0.01, 0.45, 0.95)
 EM_WEIGHTS = (0.6, 0.3, 0.1)
 RECAL_LOCI = 10_000
+# phase G: forced-allele sites on phase 3's chromosome (half of them called
+# SNVs, half reference loci without support)
+FORCED_SITES = 300
+# phase H: (a) stitched pairs over phase 3's 200 kb, cut to 40,000
+# fragments (about 30x): tagged input finds its candidates with the
+# per-read state machine; (b) an amplicon panel of 100 amplicons at 1000x
+# (about 100,000 reads); (c) read-collapsed reads, 5 kb at 300x, whose
+# -ReportRcCounts gVCF takes the object path (a reference locus each)
+XD_FRAGMENTS = 40_000
+AMPLICONS = 100
+AMPLICON_DEPTH = 1_000
+RC_LEN = 5_000
+RC_READS = 15_000
+# phase I: the -gVCF run on the MNV accuracy BAM (30 kb, object path),
+# cut to 10 kb of it
+MNV_GVCF_REGION = (10_001, 20_000)
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): f32 outside the tensor cores, and HBM3 bandwidth
@@ -504,21 +542,24 @@ def check_loci_kernel(device):
 # The main path
 # ---------------------------------------------------------------------------
 
-def _run_cli(app, bam, genome, out, backend, extra=()):
+def _run_cli(app, bam, genome, out, backend, extra=(), gvcf=True):
     """One CLI run; returns (wall seconds, stage snapshot, VCF body)."""
     import torch
     from pisces_tpu_torch.entry import vcf_body
     from pisces_tpu_torch.utils.metrics import metrics
     metrics.reset()
     t0 = time.perf_counter()
-    rc = app.main(["-bam", bam, "-g", genome, "-o", out, "-gVCF", "true",
+    rc = app.main(["-bam", bam, "-g", genome, "-o", out,
+                   "-gVCF", "true" if gvcf else "false",
                    "-backend", backend, "-device", "cuda", *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"-backend {backend} run into {out} exited {rc}")
+    stem = os.path.basename(bam)[:-len(".bam")]
+    name = f"{stem}.genome.vcf" if gvcf else f"{stem}.vcf"
     return (wall, metrics.snapshot()["stages"],
-            vcf_body(os.path.join(out, "b.genome.vcf")))
+            vcf_body(os.path.join(out, name)))
 
 
 def run_main_path(work: str, device):
@@ -1183,6 +1224,243 @@ def run_em_path(work: str, device):
 
 
 # ---------------------------------------------------------------------------
+# Phases G-I: caller options, tagged input, MNV calling
+# ---------------------------------------------------------------------------
+
+def _option_runs(name, bam, genome, out, extra=(), gvcf=True,
+                 tuples=None):
+    """The CLI on the card (-backend torch) and on the host (-backend
+    numpy), launch counts set to 0 just before each run and read just after;
+    logs each run's wall, stages, launches and device batches. Returns
+    ({backend: record}, {backend: VCF body}). `tuples`, a list, receives
+    the tuples each launch of the torch run was handed."""
+    import pisces_tpu_torch.apps.pisces as app
+    from pisces_tpu_torch.io import native
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.utils.metrics import metrics
+
+    launch = K.score_reference_tuples
+
+    def recording(t, params, num_no_calls=None):
+        tuples.append(t)
+        return launch(t, params, num_no_calls)
+
+    runs, bodies = {}, {}
+    for backend in ("torch", "numpy"):
+        native.reset_pileup_calls()
+        K.reset_launch_counts()
+        if tuples is not None and backend == "torch":
+            K.score_reference_tuples = recording
+        try:
+            wall, stages, bodies[backend] = _run_cli(
+                app, bam, genome, f"{out}_{backend}", backend, extra, gvcf)
+        finally:
+            K.score_reference_tuples = launch
+        counters = metrics.snapshot()["counters"]
+        r = {"run": f"{name} -backend {backend}", "wall_s": wall,
+             "stages": stages, "pileups": native.pileup_calls,
+             "launches": K.launch_counts["score_tuples"],
+             "device_batches": counters.get("candidate_batches_on_device", 0),
+             "device_candidates": counters.get("candidates_on_device", 0),
+             "candidates": counters.get("candidates_scored", 0),
+             "reads": counters.get("reads", 0)}
+        runs[backend] = r
+        log(f"{r['run']}: {wall:.2f} s ({r['reads'] / wall:,.0f} reads/s), "
+            f"{len(bodies[backend]):,} lines; native_pileup {r['pileups']} "
+            f"and score_tuples {r['launches']} time(s); "
+            f"{r['device_batches']:.0f} candidate batch(es) of "
+            f"{r['candidates']:,.0f} candidates reached the device "
+            f"({r['device_candidates']:,.0f} candidates); stages: "
+            + ", ".join(f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
+                        for k, v in stages.items()))
+    return runs, bodies
+
+
+def _launched_once(runs, what: str) -> None:
+    if runs["torch"]["launches"] != 1 or runs["numpy"]["launches"] != 0:
+        raise AssertionError(
+            f"{what}: score_tuples launched {runs['torch']['launches']} "
+            f"(torch) and {runs['numpy']['launches']} (numpy) times; want "
+            "1 and 0")
+
+
+def run_option_paths(work: str, main_body):
+    """Phase G on phase 3's workload: forced alleles, priors with padded
+    MNVs trimmed, and the bias tables in one run a backend. Returns each
+    run's record."""
+    import filecmp
+
+    from pisces_tpu_torch.entry import compare_vcf_bodies
+    from pisces_tpu_torch.io.fasta import Genome
+    from pisces_tpu_torch.synthetic import (
+        forced_and_prior_sites, write_sites_vcf,
+    )
+
+    bam = os.path.join(work, "b.bam")
+    genome = os.path.join(work, "genome")
+    seq = Genome(genome).get_chr_reference("chr1").sequence
+    forced, priors = forced_and_prior_sites(main_body, seq, "chr1",
+                                            FORCED_SITES, seed=SEED)
+    flags = ("-ForcedAlleles",
+             write_sites_vcf(os.path.join(work, "forced.vcf"), forced),
+             "-PriorsPath",
+             write_sites_vcf(os.path.join(work, "priors.vcf"), priors),
+             "-TrimMnvPriors", "true", "-OutputBiasFiles", "true")
+    out = os.path.join(work, "options")
+    tuples = []
+    runs, bodies = _option_runs("options (forced, priors, bias files)", bam,
+                                genome, out, flags, tuples=tuples)
+    _launched_once(runs, "phase G")
+    n = compare_vcf_bodies(bodies["torch"], bodies["numpy"])
+    lines = {(ln.split("\t")[1], ln.split("\t")[4]) for ln in bodies["torch"]}
+    missing = [f for f in forced if (str(f[1]), f[3]) not in lines]
+    if missing:
+        raise AssertionError(f"phase G: {len(missing)} forced alleles "
+                             f"missing from the body, e.g. {missing[:3]}")
+    n_report = sum("ForcedReport" in ln for ln in bodies["torch"])
+    for table in ("ReadStrandBias", "AmpliconBias"):
+        a, b = (os.path.join(f"{out}_{k}", f"b.genome.{table}.txt")
+                for k in ("torch", "numpy"))
+        if not filecmp.cmp(a, b, shallow=False):
+            raise AssertionError(f"phase G: {table} tables differ between "
+                                 "the backends")
+    with open(a.replace("AmpliconBias", "ReadStrandBias")) as f:
+        n_sb = len(f.read().splitlines()) - 1
+    log(f"phase G: score_tuples got {tuples[0].shape[0]:,} unique tuples; "
+        f"{n:,} lines agree between the backends; all "
+        f"{len(forced)} forced alleles ({len(forced) // 2} at called SNVs, "
+        f"the rest at reference loci) in the body, {n_report} lines "
+        f"filtered ForcedReport; {len(priors)} priors ({FORCED_SITES // 4} padded "
+        f"MNVs); bias tables byte-equal ({n_sb:,} strand-bias rows)")
+    return list(runs.values())
+
+
+def run_tagged_paths(work: str):
+    """Phase H: stitched (XD) pairs, also with -CoverageMethod exact; an
+    amplicon panel (XN) with -abfilter; read-collapsed input (XV/XW/XR)
+    with -ReportRcCounts. Returns each run's record and the stitched
+    tuples' count."""
+    import filecmp
+
+    from pisces_tpu_torch.entry import compare_vcf_bodies
+    from pisces_tpu_torch.synthetic import (
+        write_amplicon_workload, write_collapsed_workload,
+        write_stitched_workload,
+    )
+
+    records = []
+    t0 = time.perf_counter()
+    bam, genome = write_stitched_workload(os.path.join(work, "xd"),
+                                          CHROM_LEN, XD_FRAGMENTS, seed=SEED)
+    log(f"stitched workload: 1 x {CHROM_LEN:,} bp, {XD_FRAGMENTS:,} "
+        f"fragments, written in {time.perf_counter() - t0:.1f} s")
+    stitched = 0
+    for name, extra in (("stitched XD", ()),
+                        ("stitched XD, -CoverageMethod exact",
+                         ("-CoverageMethod", "exact"))):
+        tuples = []
+        runs, bodies = _option_runs(
+            name, bam, genome, os.path.join(work, "xd", name.split()[-1]),
+            ("-UseStitchedXD", "true", *extra), tuples=tuples)
+        _launched_once(runs, name)
+        if runs["torch"]["pileups"] != 1:
+            raise AssertionError(f"{name}: the native pass did not count "
+                                 "the stitched reads")
+        t = tuples[0]
+        n_st = int(((t[:, 2] > 0) | (t[:, 5] > 0)).sum())
+        if n_st == 0:
+            raise AssertionError(f"{name}: no tuple with stitched counts")
+        stitched = max(stitched, n_st)
+        n = compare_vcf_bodies(bodies["torch"], bodies["numpy"])
+        log(f"{name}: score_tuples got {t.shape[0]:,} unique tuples, "
+            f"{n_st:,} with non-zero stitched columns; {n:,} lines agree "
+            "between the backends")
+        records += runs.values()
+
+    t0 = time.perf_counter()
+    bam, genome = write_amplicon_workload(os.path.join(work, "amp"),
+                                          AMPLICONS, depth=AMPLICON_DEPTH,
+                                          seed=SEED)
+    log(f"amplicon workload: {AMPLICONS} amplicons at {AMPLICON_DEPTH}x, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(work, "amp", "run")
+    tuples = []
+    runs, bodies = _option_runs("amplicon panel -abfilter 0.01", bam, genome,
+                                out, ("-abfilter", "0.01",
+                                      "-OutputBiasFiles", "true"),
+                                tuples=tuples)
+    _launched_once(runs, "amplicon panel")
+    n = compare_vcf_bodies(bodies["torch"], bodies["numpy"])
+    n_ab = sum("AB" in ln.split("\t")[6].split(";") for ln in bodies["torch"])
+    if n_ab == 0:
+        raise AssertionError("amplicon panel: no call carries the AB filter")
+    if not filecmp.cmp(*(os.path.join(f"{out}_{k}",
+                                      "b.genome.AmpliconBias.txt")
+                         for k in ("torch", "numpy")), shallow=False):
+        raise AssertionError("amplicon panel: bias tables differ")
+    log(f"amplicon panel: score_tuples got {tuples[0].shape[0]:,} unique "
+        f"tuples; {n:,} lines agree between the backends, {n_ab} "
+        "calls filtered AB; amplicon-bias tables byte-equal")
+    records += runs.values()
+
+    t0 = time.perf_counter()
+    bam, genome = write_collapsed_workload(os.path.join(work, "rc"), RC_LEN,
+                                           RC_READS, seed=SEED)
+    log(f"read-collapsed workload: 1 x {RC_LEN:,} bp, {RC_READS:,} reads, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    runs, bodies = _option_runs("read-collapsed -ReportRcCounts", bam,
+                                genome, os.path.join(work, "rc", "run"),
+                                ("-ReportRcCounts", "true"))
+    if bodies["torch"] != bodies["numpy"]:
+        raise AssertionError("read-collapsed: bodies differ between the "
+                             "backends")
+    n_us = sum(ln.split("\t")[8].endswith(":US") for ln in bodies["torch"])
+    if n_us == 0 or runs["torch"]["launches"] != 0:
+        raise AssertionError(f"read-collapsed: {n_us} lines with US counts, "
+                             f"{runs['torch']['launches']} tuple launches")
+    log(f"read-collapsed: {len(bodies['torch']):,} lines byte-equal between "
+        f"the backends, {n_us} lines with US counts; the object "
+        "gVCF path, no score_tuples launch by design")
+    records += runs.values()
+    return records, stitched
+
+
+def run_mnv_paths(work: str, device):
+    """Phase I: the reference bench's MNV stage (direct arm) on the card,
+    then its BAM with -gVCF true in both backends. Returns each run's
+    record."""
+    from pisces_tpu_torch.apps.accuracy import run_mnv_accuracy
+
+    out = os.path.join(work, "mnv")
+    t0 = time.perf_counter()
+    res = run_mnv_accuracy(out, device=device)
+    wall = time.perf_counter() - t0
+    if (res.n_truth, res.recall, res.precision) != (40, 1.0, 1.0):
+        raise AssertionError(f"MNV accuracy: {res}; want recall = precision "
+                             "= 1.00 on 40 haplotypes")
+    log(f"MNV accuracy (direct -CallMNVs arm, 40 haplotypes, 300x over "
+        f"30 kb, generation and the call on the card): {wall:.2f} s; "
+        f"recall {res.recall:.3f}, precision {res.precision:.3f} "
+        f"(tp={res.tp} fp={res.fp} fn={res.fn})")
+    region = os.path.join(work, "mnv.picard")
+    with open(region, "w") as f:
+        f.write("@HD\tVN:1.6\nchrM2\t%d\t%d\n" % MNV_GVCF_REGION)
+    runs, bodies = _option_runs(
+        "MNV gVCF", os.path.join(out, "mnv.bam"), os.path.join(out, "genome"),
+        os.path.join(work, "gvcf"),
+        ("-CallMNVs", "true", "-MaxMNVLength", "100", "-MaxGapBetweenMNV",
+         "10", "-IntervalPaths", region))
+    if bodies["torch"] != bodies["numpy"]:
+        raise AssertionError("MNV gVCF: bodies differ between the backends")
+    n_mnv = sum(len(ln.split("\t")[3]) > 1 and ln.split("\t")[4] != "."
+                for ln in bodies["torch"])
+    log(f"MNV gVCF in {MNV_GVCF_REGION}: {len(bodies['torch']):,} lines, "
+        f"{n_mnv} MNV lines, byte-equal between the backends (the object "
+        "path: no score_tuples launch by design)")
+    return [{"run": "MNV accuracy", "wall_s": wall}, *runs.values()]
+
+
+# ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
 
@@ -1306,11 +1584,16 @@ def main_smoke() -> int:
         err["score_loci"] = max(err["score_loci"], run_entry_points(device))
 
         # phase A: the main path's chromosome in windows
-        win_runs = run_windowed_path(work, device, e2e.pop("body"))
+        main_body = e2e.pop("body")
+        win_runs = run_windowed_path(work, device, main_body)
 
         # phase E: the ploidies on the same workload, then the germline
         # harness
         ploidy_runs = run_ploidy_paths(work, device)
+
+        # phase G: the caller options on the same workload
+        option_runs = run_option_paths(work, main_body)
+        del main_body
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1321,6 +1604,14 @@ def main_smoke() -> int:
             run_scheduler_paths(work)
         mh_runs = run_multihost_paths(work, sched_bam, sched_genome, serial)
         del serial
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # phases H and I: tagged input, then MNV calling
+    work = os.path.join(REPO, "build", "chip_smoke_tagged")
+    try:
+        tagged_runs, stitched_tuples = run_tagged_paths(work)
+        mnv_runs = run_mnv_paths(work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1384,6 +1675,8 @@ def main_smoke() -> int:
         log(f"{r['run']}: {r['wall_s']:.2f} s against {sched_runs[0]['wall_s']:.2f}"
             f" s serial (phase B)")
     log(f"EM at {EM_OBS:,} observations on the card: {em['em_ms']:.1f} ms")
+    log(f"phase H(a): {stitched_tuples:,} tuples with non-zero stitched "
+        "columns reached score_tuples")
     for r in win_runs + sched_runs + ploidy_runs:
         if r.get("stages"):
             log(f"stages ({r['run']}): " + ", ".join(
@@ -1404,7 +1697,8 @@ def main_smoke() -> int:
         "launches_by_path": {
             "main": launches["score_tuples"],
             **{r["run"]: r["launches"]
-               for r in win_runs + sched_runs + mh_runs + ploidy_runs
+               for r in (win_runs + sched_runs + mh_runs + ploidy_runs
+                         + option_runs + tagged_runs + mnv_runs)
                if "launches" in r}},
         "max_abs_err": err["score_tuples"],
         "ms": t["ms"],

@@ -9,14 +9,16 @@ The port runs chromosomes through the native read flow (the C++ BAM decode
 and pileup pass of io/native, as the reference package's default run), with
 somatic, diploid (-ploidy diploid) and adaptive (-ploidy adaptive)
 genotyping, haploid on the sex chromosomes with -gender, the
-default filters, optional -IntervalPaths, -WindowSize streaming over the
+default filters, optional -IntervalPaths, forced alleles
+(-ForcedAlleles), known priors (-PriorsPath, -TrimMnvPriors), the
+bias tables (-OutputBiasFiles), MNV calling (-CallMNVs), stitched (XD) and
+read-collapsed (XV/XW, -ReportRcCounts) input, amplicon bias (-abfilter,
+XN tags), -CoverageMethod exact, -WindowSize streaming over the
 .bai, the schedulers of parallel/scheduler.py (-MaxThreads, several BAMs,
 -ThreadByChr, -MultiProcess with -Resume), -MultiHost (one process of a
 multi-host job, parallel/multihost.py) and -MeshDevices N (the gVCF
 reference scoring and large candidate batches sharded over N devices of
--device's type, parallel/sharding.py, from Python read events). Options
-outside it raise NotImplementedError naming the ROADMAP item that ports
-them.
+-device's type, parallel/sharding.py, from Python read events).
 
     python -m pisces_tpu_torch.apps.pisces -bam B -g G -o O -gVCF true \\
         [-device cuda|cpu] [-backend torch|numpy] [-ploidy P [-gender G]] \\
@@ -28,13 +30,13 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from pisces_tpu_torch.device import resolve_device
 from pisces_tpu_torch.domain.types import (
-    BASE_TO_ALLELE, CoverageMethod, PloidyModel,
+    BASE_TO_ALLELE, AlleleCategory, CoverageMethod, PloidyModel,
 )
 from pisces_tpu_torch.io.bam import filter_batch
 from pisces_tpu_torch.io.fasta import ChrReference, Genome
@@ -49,7 +51,9 @@ from pisces_tpu_torch.calling.collapser import VariantCollapser
 from pisces_tpu_torch.calling.source import AlleleSource
 from pisces_tpu_torch.genotype import get_ploidy_for_chr
 from pisces_tpu_torch.options import PiscesApplicationOptions
-from pisces_tpu_torch.pileup.candidates import find_candidates_batch
+from pisces_tpu_torch.pileup.candidates import (
+    Candidate, find_candidates_batch,
+)
 from pisces_tpu_torch.pileup.candidates_fast import (
     aggregate_native_mismatches, find_indel_candidates,
 )
@@ -61,61 +65,51 @@ from pisces_tpu_torch.utils.logger import log
 from pisces_tpu_torch.utils.metrics import metrics
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported (ROADMAP Queue 1 item {item})")
+def _fast_gvcf_eligible(options: PiscesApplicationOptions,
+                        forced_alleles=None) -> bool:
+    """Whether the columnar fast-gVCF reference path applies.
 
-
-def check_ported(options: PiscesApplicationOptions) -> None:
-    """Raise for the options this slice of the port does not run."""
+    The tuple kernel implements SOMATIC ref-line GT/GQ; diploid
+    thresholding routes through a vectorized f64 host twin
+    (fast_gvcf._score_host_tuples_diploid); haploid and adaptive ploidy go
+    through the object path. MNV mode and collapsed-count reporting need
+    per-candidate objects; crushed loci with forced alleles need the
+    colocated writer to merge ref+forced lines; a LowGQ filter threshold
+    needs the per-allele filter pass."""
     v = options.variant_calling_parameters
     w = options.vcf_writing_parameters
-    checks = [
-        (options.call_mnvs, "-CallMNVs"),
-        (v.amplicon_bias_filter_threshold is not None, "amplicon bias"),
-        (options.coverage_method == CoverageMethod.EXACT,
-         "-CoverageMethod EXACT"),
-        (bool(options.forced_alleles_paths), "forced alleles"),
-        (options.priors_path is not None, "priors (-PriorsPath)"),
-        (options.use_stitched_xd_info, "stitched (XD) input"),
-        (w.report_rc_counts, "-ReportRcCounts (read-collapsed input)"),
-        (options.output_bias_files, "-OutputBiasFiles"),
-    ]
-    for on, what in checks:
-        if on:
-            raise _not_ported(what, 7)
-
-
-def _fast_gvcf_eligible(options: PiscesApplicationOptions) -> bool:
-    """Whether the columnar fast-gVCF reference path applies: gVCF output,
-    somatic or diploid-thresholding ploidy (the tuple kernel implements
-    somatic ref-line GT/GQ, diploid thresholding has a vectorized f64 host
-    twin, fast_gvcf._score_host_tuples_diploid; haploid and adaptive ploidy
-    go through the object path) and no LowGQ filter threshold (which needs
-    the per-allele filter pass)."""
-    v = options.variant_calling_parameters
-    return (options.vcf_writing_parameters.output_gvcf_file
+    return (w.output_gvcf_file
             and options.use_fast_gvcf
+            and not options.call_mnvs
+            and not w.report_rc_counts
             and v.ploidy_model in (PloidyModel.SOMATIC,
                                    PloidyModel.DIPLOID_BY_THRESHOLDING)
-            and v.low_genotype_quality_filter is None)
+            and v.low_genotype_quality_filter is None
+            and (w.allow_multiple_vcf_lines_per_loci or not forced_alleles))
 
 
 def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
-                    bam, intervals=None, device="cuda", mesh=None):
+                    bam, intervals=None, device="cuda", mesh=None,
+                    forced_alleles=None, priors=None):
     """Run the full calling pipeline for one chromosome.
 
     `bam` is a reader from io/native.open_bam, or a window's _RegionView
     over a lazy one. The native reader takes the native flow: C++ decode,
     then one C++ pileup pass for the counts, the unique gVCF tuples and the
-    SNV mismatches. The Python reader (open_bam(prefer_native=False)) takes
-    the Python flow: read events and a torch count build. `device` is the
-    torch device for the Python flow's
+    SNV mismatches. Runs that need per-read candidate objects (-CallMNVs,
+    amplicon tracking, tagged stitched or read-collapsed input) find their
+    candidates with the per-read state machine of pileup/candidates and, on
+    a native batch, count with the C++ pass (stitched reads with their XD
+    per-base directions); the Python reader (open_bam(prefer_native=False))
+    takes the Python flow: read events and a torch count build. `device` is
+    the torch device for the Python flow's
     count build, the tuple-scoring kernel and large candidate batches
     ("cuda" unless the caller passes "cpu"); None runs everything on the
     host in numpy (-backend numpy). `mesh` (parallel/sharding.Mesh,
     -MeshDevices > 1) scores the gVCF reference loci sharded over its
     devices from the read events, so it always takes the Python events.
+    `forced_alleles` (load_forced_alleles) are reported whatever their
+    support; `priors` (load_priors) are the collapser's known variants.
     Returns the called alleles in genome order, plus the columnar reference
     lines (positions, lines) when the fast gVCF path applies.
     """
@@ -124,10 +118,13 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
     cfg.device = device
     cfg.mesh = mesh
     bf = options.bam_filter_parameters
-    if bam.header.source_is_stitched:
-        raise _not_ported("stitched (XD) input", 7)
-    if bam.header.source_is_collapsed:
-        raise _not_ported("read-collapsed input", 7)
+    v = options.variant_calling_parameters
+    track_amplicons = v.amplicon_bias_filter_threshold is not None
+    source_is_stitched = (bam.header.source_is_stitched
+                          or options.use_stitched_xd_info)
+    need_tags = (track_amplicons or source_is_stitched
+                 or bam.header.source_is_collapsed
+                 or options.vcf_writing_parameters.report_rc_counts)
 
     ref_id = bam.header.ref_index(chrom.name)
     # the native handle may sit behind a window's _RegionView
@@ -137,30 +134,40 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
         # the native reader serves seq/qual/cigar as zero-copy views into
         # its decode buffers: this call consumes the batch before the
         # handle's next fetch, and its pileup does not invalidate them
-        batch = (bam.fetch(ref_id=ref_id, as_views=True) if native
-                 else bam.fetch(ref_id=ref_id))
+        batch = (bam.fetch(ref_id=ref_id, parse_tags=need_tags,
+                           as_views=True) if native
+                 else bam.fetch(ref_id=ref_id, parse_tags=need_tags))
     metrics.count("reads", batch.n)
     keep = filter_batch(batch, bf.minimum_map_quality, bf.remove_duplicates,
                         bf.only_use_proper_pairs)
 
-    # the native flow needs a batch from the native handle; the mesh scores
-    # from the read events, so -MeshDevices keeps the Python events on the
-    # natively decoded batch
-    if batch._from_native_handle and mesh is None:
+    base_dirs = None
+    if source_is_stitched and batch.xd_tags is not None:
+        from pisces_tpu_torch.pileup.directions import batch_base_directions
+        with metrics.stage("pileup"):
+            base_dirs = batch_base_directions(batch, keep)
+
+    # the native flow needs a batch from the native handle and no per-read
+    # candidate objects; the mesh scores from the read events, so
+    # -MeshDevices keeps the Python events on the natively decoded batch
+    counts_native = batch._from_native_handle and mesh is None
+    if (counts_native and not options.call_mnvs and not track_amplicons
+            and batch.extra_tags is None):
         # C++ pass: events, count scatter, scoring tuples and SNV mismatch
         # extraction in one go; indels come from the CIGAR walk before it
         with metrics.stage("candidates"):
             indels = find_indel_candidates(
                 chrom.name, chrom.sequence, batch, keep,
                 bf.minimum_base_call_quality, options.tracked_anchor_size,
-                track_open_ended=options.collapse)
+                track_open_ended=options.collapse, base_dirs=base_dirs)
         anchor_positions = candidate_anchor_positions(indels)
         with metrics.stage("pileup"):
             pc, mm = native_pileup(reader, keep, bf.minimum_base_call_quality,
                                    options.tracked_anchor_size,
                                    anchor_positions,
                                    ref_codes=BASE_TO_ALLELE[chrom.sequence],
-                                   track_open_ended=options.collapse)
+                                   track_open_ended=options.collapse,
+                                   base_dirs=base_dirs)
         with metrics.stage("candidates"):
             candidates = aggregate_native_mismatches(
                 chrom.name, chrom.sequence, *mm) + indels
@@ -170,27 +177,59 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                 chrom.name, chrom.sequence, batch, keep,
                 bf.minimum_base_call_quality, options.call_mnvs,
                 options.max_size_mnv, options.max_gap_between_mnv,
-                options.tracked_anchor_size, track_open_ended=options.collapse)
+                options.tracked_anchor_size, track_open_ended=options.collapse,
+                track_amplicons=track_amplicons)
         anchor_positions = candidate_anchor_positions(candidates)
         with metrics.stage("pileup"):
-            ev = build_base_events(batch, keep, bf.minimum_base_call_quality,
-                                   options.tracked_anchor_size)
-            if device is not None:
-                pc = build_counts_device(
-                    ev, anchor_size=options.tracked_anchor_size,
-                    anchored_positions=anchor_positions, device=device)
+            if counts_native:
+                pc, _ = native_pileup(reader, keep,
+                                      bf.minimum_base_call_quality,
+                                      options.tracked_anchor_size,
+                                      anchor_positions, base_dirs=base_dirs)
             else:
-                pc = build_counts_host(
-                    ev, anchor_size=options.tracked_anchor_size,
-                    anchored_positions=anchor_positions)
-    source = AlleleSource(pc)
+                ev = build_base_events(batch, keep,
+                                       bf.minimum_base_call_quality,
+                                       options.tracked_anchor_size,
+                                       base_dirs=base_dirs)
+                if device is not None:
+                    pc = build_counts_device(
+                        ev, anchor_size=options.tracked_anchor_size,
+                        anchored_positions=anchor_positions, device=device)
+                else:
+                    pc = build_counts_host(
+                        ev, anchor_size=options.tracked_anchor_size,
+                        anchored_positions=anchor_positions)
+
+    amp_cov = None
+    read_summaries = None
+    if track_amplicons:
+        from pisces_tpu_torch.pileup.amplicons import amplicon_coverage
+        with metrics.stage("pileup"):
+            amp_cov = amplicon_coverage(batch, keep,
+                                        bf.minimum_base_call_quality)
+    if options.coverage_method == CoverageMethod.EXACT:
+        from pisces_tpu_torch.ops.exact_coverage import build_read_summaries
+        with metrics.stage("pileup"):
+            read_summaries = build_read_summaries(batch, keep, base_dirs)
+    source = AlleleSource(pc, expect_stitched_reads=source_is_stitched,
+                          amplicon_coverage=amp_cov)
+
+    if forced_alleles:
+        from pisces_tpu_torch.io.vcf_read import classify
+        existing = {(c.position, c.ref_allele, c.alt_allele)
+                    for c in candidates}
+        for (chrom_name, pos, ref, alt) in sorted(forced_alleles):
+            if chrom_name != chrom.name or (pos, ref, alt) in existing:
+                continue
+            fc = Candidate(chrom.name, pos, ref, alt, classify(ref, alt))
+            fc.is_forced = True
+            candidates.append(fc)
 
     # effective ploidy is per chromosome (chrM always somatic; sex
     # chromosomes go haploid with -gender — GenotypeCreator
     # .GetPloidyForThisChr); only somatic/diploid ref rules are columnar
-    v = options.variant_calling_parameters
     eff_ploidy = get_ploidy_for_chr(v.ploidy_model, v.is_male, chrom.name)
-    fast_gvcf = (_fast_gvcf_eligible(options)
+    fast_gvcf = (_fast_gvcf_eligible(options, forced_alleles)
                  and eff_ploidy in (PloidyModel.SOMATIC,
                                     PloidyModel.DIPLOID_BY_THRESHOLDING))
     if options.vcf_writing_parameters.output_gvcf_file and not fast_gvcf:
@@ -200,13 +239,25 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
     collapser = None
     if options.collapse:
         collapser = VariantCollapser(
-            None, options.exclude_mnvs_from_collapsing,
+            priors.get(chrom.name) if priors else None,
+            options.exclude_mnvs_from_collapsing,
             cfg.consider_anchor_information,
             options.collapse_freq_threshold, options.collapse_freq_ratio_threshold)
 
-    caller = AlleleCaller(cfg, chrom.sequence, collapser, intervals)
+    caller = AlleleCaller(cfg, chrom.sequence, collapser, intervals,
+                          read_summaries=read_summaries)
+    if forced_alleles:
+        caller.forced_alleles = {f for f in forced_alleles
+                                 if f[0] == chrom.name}
     with metrics.stage("allele_calling"):
         by_position = caller.call(candidates, source, max_position=None)
+        if (options.vcf_writing_parameters.report_rc_counts
+                and batch.extra_tags is not None):
+            from pisces_tpu_torch.pileup.collapsed import (
+                assign_collapsed_totals, collapsed_total_counts,
+            )
+            assign_collapsed_totals(by_position, collapsed_total_counts(
+                batch, keep, bf.minimum_base_call_quality, base_dirs))
     metrics.count("candidates_scored", len(candidates))
 
     ref_lines = None
@@ -282,7 +333,10 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
 def write_spliced(writer, variant_alleles, ref_lines) -> None:
     """Merge the columnar reference-line stream with object-path variant
     alleles, in position order; ref lines at emitted-variant positions are
-    pruned (ComputeGenotypeAndFilterAllele ref-pruning semantics).
+    pruned (ComputeGenotypeAndFilterAllele ref-pruning semantics) UNLESS
+    every variant there is forced-to-report — the reference keeps the
+    locus's reference allele when only forced alleles coexist
+    (AlleleCaller.cs:143-150 guards the prune on a non-forced variant).
     `ref_lines` is None or (positions, fast_gvcf.RefLineBlock)."""
     variant_positions = {}
     for a in variant_alleles:
@@ -308,14 +362,76 @@ def write_spliced(writer, variant_alleles, ref_lines) -> None:
         _bulk_refs_upto(int(np.searchsorted(positions, pos)))
         has_ref_line = ri < n_ref and int(positions[ri]) == pos
         at_pos = variant_positions[pos]
+        keep_ref = has_ref_line and all(a.is_forced_to_report
+                                        for a in at_pos)
         if writer.config.allow_multiple_vcf_lines_per_loci:
+            # locus ordering is by (ref, alt) with the reference line
+            # keyed by its base (AlleleCaller.cs:172-176 sort)
+            ref_key = None
+            if keep_ref:
+                ref_base = lines.line(ri).split("\t", 4)[3]
+                ref_key = (ref_base, ref_base)
             for a in at_pos:
+                if ref_key is not None and ref_key <= (a.ref_allele,
+                                                       a.alt_allele):
+                    fh.write(lines.line(ri) + "\n")
+                    ref_key = None
                 writer.write_colocated([a])
+            if ref_key is not None:
+                fh.write(lines.line(ri) + "\n")
         else:
+            if keep_ref:
+                fh.write(lines.line(ri) + "\n")
             writer.write_colocated(at_pos)
         if has_ref_line:
             ri += 1
     _bulk_refs_upto(n_ref)
+
+
+def load_forced_alleles(paths: List[str]) -> set:
+    """Factory.GetForcedAlleles: load (chrom, pos, ref, alt) tuples from VCFs,
+    rejecting invalid alts."""
+    from pisces_tpu_torch.io.vcf_read import read_header_and_variants
+    out = set()
+    for path in paths:
+        _, variants = read_header_and_variants(path)
+        for v in variants:
+            for alt in v.alt_allele.split(","):
+                ref = v.ref_allele.upper()
+                a = alt.upper()
+                if a == ref or any(ch not in "ACGT" for ch in a):
+                    log(f"Invalid forced genotyping variant: {v.chrom}:"
+                        f"{v.position} {ref}>{a}")
+                    continue
+                out.add((v.chrom, v.position, ref, a))
+    return out
+
+
+def load_priors(path: str, trim_mnv: bool = False):
+    """Load known collapsable variants (-PriorsPath) into per-chromosome
+    Candidate lists for the collapser (Factory.cs priors + TrimMnvPriors:
+    strip the shared leading reference base of padded MNV priors)."""
+    from pisces_tpu_torch.io.vcf_read import read_header_and_variants
+
+    by_chrom: Dict[str, list] = {}
+    _hdr, variants = read_header_and_variants(path)
+    for v in variants:
+        for alt in v.alt_allele.split(","):
+            if alt in (".", "<M>", "*"):
+                continue
+            pos, ref, a = v.position, v.ref_allele, alt
+            if trim_mnv and len(ref) > 1 and len(a) > 1 and ref[0] == a[0]:
+                pos, ref, a = pos + 1, ref[1:], a[1:]
+            if len(ref) == len(a):
+                cat = (AlleleCategory.SNV if len(ref) == 1
+                       else AlleleCategory.MNV)
+            elif len(ref) > len(a):
+                cat = AlleleCategory.DELETION
+            else:
+                cat = AlleleCategory.INSERTION
+            by_chrom.setdefault(v.chrom, []).append(
+                Candidate(v.chrom, pos, ref, a, cat))
+    return by_chrom
 
 
 class _RegionView:
@@ -329,10 +445,13 @@ class _RegionView:
         self.header = reader.header
         self._region = (ref_id, beg0, end0)
 
-    def fetch(self, ref_id=None, as_views: bool = False):
+    def fetch(self, ref_id=None, parse_tags: bool = False,
+              as_views: bool = False):
         if as_views:
-            return self.reader.fetch_region(*self._region, as_views=True)
-        return self.reader.fetch_region(*self._region)
+            return self.reader.fetch_region(*self._region,
+                                            parse_tags=parse_tags,
+                                            as_views=True)
+        return self.reader.fetch_region(*self._region, parse_tags=parse_tags)
 
 
 def _trim_window_result(result, w0: int, w1: int):
@@ -355,13 +474,15 @@ def _trim_window_result(result, w0: int, w1: int):
 
 def call_chromosome_windowed(options, chrom, reader, ref_id: int,
                              intervals=None, device="cuda", mesh=None,
-                             reader_factory=None, pipeline_threads: int = 1):
+                             reader_factory=None, pipeline_threads: int = 1,
+                             forced_alleles=None, priors=None):
     """Stream one chromosome in options.window_size slices. Yields
     (result, w_start1, w_end1) per window, result as _trim_window_result
     gives it. Counts at in-window positions are complete because
     fetch_region selects reads by overlap, and options.window_margin covers
-    spanning-variant endpoint lookups past the window edge. `device` and
-    `mesh` reach every window as call_chromosome takes them.
+    spanning-variant endpoint lookups past the window edge. `device`,
+    `mesh`, `forced_alleles` and `priors` reach every window as
+    call_chromosome takes them.
 
     With pipeline_threads > 1 and a reader_factory, windows run on worker
     threads, each with its OWN reader handle (a lazy fetch rewrites its
@@ -376,7 +497,7 @@ def call_chromosome_windowed(options, chrom, reader, ref_id: int,
         view = _RegionView(handle, ref_id, max(0, w0 - margin),
                            min(L, w1 + margin))
         result = call_chromosome(options, chrom, view, intervals, device,
-                                 mesh)
+                                 mesh, forced_alleles, priors)
         return _trim_window_result(result, w0, w1)
 
     if pipeline_threads <= 1 or reader_factory is None or len(windows) <= 1:
@@ -422,7 +543,6 @@ def scoring_setup(options: PiscesApplicationOptions, device="cuda",
     if backend not in ("torch", "numpy"):
         raise ValueError(f"backend must be torch or numpy, got {backend!r}")
     device = resolve_device(device)
-    check_ported(options)
     options.validate()
     mesh = None
     if options.mesh_devices > 1:
@@ -458,9 +578,16 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
     whole file is never inflated; without the .bai a WARNING is logged and
     the chromosome runs whole, as in the reference.
 
-    `device` and `backend` as scoring_setup takes them.
+    Forced alleles and priors load once a run; with
+    -OutputBiasFiles the strand- and amplicon-bias tables are written
+    beside the VCF (io/bias_writers). `device` and `backend` as
+    scoring_setup takes them.
     """
     score_device, mesh = scoring_setup(options, device, backend)
+    forced_alleles = (load_forced_alleles(options.forced_alleles_paths)
+                      if options.forced_alleles_paths else None)
+    priors = (load_priors(options.priors_path, options.trim_mnv_priors)
+              if options.priors_path else None)
     if out_vcf is None:
         out_vcf = default_vcf_path(options, bam_path)
     gvcf = options.vcf_writing_parameters.output_gvcf_file
@@ -474,10 +601,19 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
     cores = os.cpu_count() or 1
     n_pipe = 1 if cores <= 2 else max(1, min(2, options.max_num_threads))
 
-    wcfg = VcfWriterConfig(options, has_forced_gt=False)
+    wcfg = VcfWriterConfig(options, has_forced_gt=bool(forced_alleles))
     # the reference's sample column is the bam file name incl. extension
     # (VcfFileWriter header; cf. shipped expected outputs "PhiX_S3.bam")
     sample = os.path.basename(bam_path)
+    bias_writers = []
+    if options.output_bias_files:
+        from pisces_tpu_torch.io.bias_writers import (
+            AmpliconBiasFileWriter, StrandBiasFileWriter,
+        )
+        bias_writers = [StrandBiasFileWriter(out_vcf),
+                        AmpliconBiasFileWriter(out_vcf)]
+        for bw in bias_writers:
+            bw.write_header()
 
     with VcfWriter(out_vcf, wcfg, genome.directory, sample,
                    genome.chromosome_lengths, options.command_line) as writer:
@@ -496,17 +632,21 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
             # fast-gVCF path (which folds RegionMapper interval padding
             # into its per-window reference lines)
             win_ok = (intervals is None or not gvcf
-                      or _fast_gvcf_eligible(options))
+                      or _fast_gvcf_eligible(options, forced_alleles))
             if options.window_size > 0 and win_ok and lazy is not None:
-                for (alleles, ref_lines), _w0, _w1 in \
+                alleles = []
+                for (w_alleles, ref_lines), _w0, _w1 in \
                         call_chromosome_windowed(
                             options, chrom, lazy,
                             header.ref_index(chrom_name), intervals,
                             score_device, mesh,
                             reader_factory=lambda: open_bam(bam_path,
                                                             lazy=True),
-                            pipeline_threads=n_pipe):
-                    write_spliced(writer, alleles, ref_lines)
+                            pipeline_threads=n_pipe,
+                            forced_alleles=forced_alleles, priors=priors):
+                    write_spliced(writer, w_alleles, ref_lines)
+                    if bias_writers:
+                        alleles.extend(w_alleles)
             else:
                 if options.window_size > 0 and win_ok:
                     log(f"window mode requested but {bam_path}.bai missing; "
@@ -514,16 +654,22 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
                 if bam is None:
                     bam = open_bam(bam_path)
                 result = call_chromosome(options, chrom, bam, intervals,
-                                         score_device, mesh)
+                                         score_device, mesh, forced_alleles,
+                                         priors)
                 if isinstance(result, tuple):
                     alleles, ref_lines = result
                     write_spliced(writer, alleles, ref_lines)
                 else:
+                    alleles = result
                     mapper = make_region_mapper(options, chrom, intervals)
-                    writer.write(result, mapper)
+                    writer.write(alleles, mapper)
                     writer.write_remaining(mapper)
+            for bw in bias_writers:
+                bw.write(alleles)
             log(f"Completed processing chr {chrom_name} in "
                 f"{time.time() - t0:.2f} secs")
+    for bw in bias_writers:
+        bw.close()
     return out_vcf
 
 
@@ -548,7 +694,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(_normalize(raw))
     options = options_from_args(args, raw)
     bam_paths = options.bam_paths
-    check_ported(options)
     device = resolve_device(args.device)
 
     def execute() -> int:

@@ -155,12 +155,13 @@ class _SbSliceView:
 class AlleleCaller:
     def __init__(self, config: CallerConfig, refseq: np.ndarray,
                  collapser: Optional[VariantCollapser] = None,
-                 interval_set=None):
+                 interval_set=None, read_summaries=None):
         self.config = config
         self.refseq = refseq
         self.refseq_str = RefSeqStr(refseq)
         self.collapser = collapser
         self.interval_set = interval_set
+        self.read_summaries = read_summaries
         self.forced_alleles: set = set()
         self.total_num_called = 0
         # loci whose reference allele was suppressed by a coexisting
@@ -181,7 +182,7 @@ class AlleleCaller:
     #            for SNV/reference alleles; spanning semantics per-allele)
     #   phase 2  q-score + strand bias over the whole batch (host f64
     #            vectorized, or the torch device for large batches)
-    #   phase 3  filters (host, per-allele string logic)
+    #   phase 3  amplicon bias + filters (host, per-allele string logic)
 
     def process_variant(self, source: AlleleSource, a: CalledAllele) -> None:
         self.process_variants_batch(source, [a])
@@ -210,6 +211,24 @@ class AlleleCaller:
     def _compute_spanning_coverage(self, source: AlleleSource,
                                    a: CalledAllele) -> None:
         cfg = self.config
+        from pisces_tpu_torch.domain.types import CoverageMethod
+        use_exact = (cfg.coverage_method == CoverageMethod.EXACT
+                     and self.read_summaries is not None)
+        if use_exact:
+            from pisces_tpu_torch.ops.exact_coverage import exact_spanning_coverage
+            length = (len(a.alt_allele) - 1
+                      if a.category == AlleleCategory.INSERTION
+                      else len(a.ref_allele) - 1
+                      if a.category == AlleleCategory.DELETION
+                      else len(a.alt_allele))
+            cov_dir, total, ref_sup, sum_bq = exact_spanning_coverage(
+                source, self.read_summaries, a.category, a.position, length,
+                a.allele_support)
+            a.total_coverage = total
+            a.coverage_by_direction = cov_dir
+            a.reference_support = ref_sup
+            a.sum_of_base_quality = sum_bq
+            return
         cov = compute_coverage(source, a.category, a.position, a.ref_allele,
                                a.alt_allele, a.allele_support,
                                a.well_anchored_support,
@@ -286,7 +305,8 @@ class AlleleCaller:
 
     def _score_batch(self, alleles: List[CalledAllele],
                      source: AlleleSource) -> None:
-        """Batched q-score + strand bias (phase 2)."""
+        """Batched q-score + strand bias (phase 2) followed by per-allele
+        amplicon bias (phase 3 prologue)."""
         cfg = self.config
         n = len(alleles)
         if n == 0:
@@ -356,6 +376,20 @@ class AlleleCaller:
             a.cov_present_on_both_strands = bool(cov_both[i])
             if need_detail:
                 a.sb_detail = _SbSliceView(sb, i)
+
+        if cfg.amplicon_bias_filter_threshold is not None:
+            from pisces_tpu_torch.ops.amplicon_bias import calculate_amplicon_bias
+            for a in alleles:
+                if a.category != AlleleCategory.SNV:
+                    continue
+                support_by_amp = getattr(a, "support_by_amplicon", None) or {}
+                cov_by_amp = source.get_amplicon_coverage(a.position)
+                ab = calculate_amplicon_bias(
+                    support_by_amp, cov_by_amp,
+                    cfg.amplicon_bias_filter_threshold, cfg.max_variant_qscore)
+                if ab is not None:
+                    a.amplicon_bias_detected = ab["bias_detected"]
+                    a.amplicon_bias_results = ab["results"]
 
     def _qscore_batch_device(self, sup_by_dir, cov_by_dir, cov, noise_level,
                              n, ref_support, num_no_calls):

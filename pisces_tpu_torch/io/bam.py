@@ -8,14 +8,14 @@ per-read objects.
 This is the pure-Python read flow of the port (open_bam(prefer_native=
 False)): whole-file decode and per-chromosome extraction, or with lazy=True
 region fetches over the .bai. The default reader is the C++ one,
-io/native.NativeBamReader, with the same ReadBatch contract; tag decoding
-in Python is not ported yet.
+io/native.NativeBamReader, with the same ReadBatch contract (tags included:
+XD stitched directions, XN amplicons, XR/XU/XV/XW read-collapsed marks).
 """
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -187,8 +187,80 @@ class BamReader:
     def n_records(self) -> int:
         return len(self._scan_record_offsets()) - 1
 
-    def fetch(self, ref_id: Optional[int] = None) -> ReadBatch:
-        """Decode records (optionally only those mapped to ref_id) into a batch."""
+    @staticmethod
+    def parse_all_tags(d: bytes, p: int, rec_end: int) -> Dict[str, object]:
+        """General typed tag decode (TagUtils analog, Alignment.Domain/
+        BamCommon.cs): every tag in the record's tag block as a Python
+        value — ints (cCsSiI), floats (f), chars (A), strings (Z/H), and
+        typed arrays (B)."""
+        _SIZE = {ord("A"): 1, ord("c"): 1, ord("C"): 1, ord("s"): 2,
+                 ord("S"): 2, ord("i"): 4, ord("I"): 4, ord("f"): 4}
+        _FMT = {ord("c"): "<b", ord("C"): "<B", ord("s"): "<h",
+                ord("S"): "<H", ord("i"): "<i", ord("I"): "<I",
+                ord("f"): "<f"}
+        out: Dict[str, object] = {}
+        while p + 3 <= rec_end:
+            tag = d[p:p + 2].decode("ascii", errors="replace")
+            typ = d[p + 2]
+            p += 3
+            if typ == ord("A"):
+                out[tag] = chr(d[p])
+                p += 1
+            elif typ in _FMT:
+                out[tag] = struct.unpack_from(_FMT[typ], d, p)[0]
+                p += _SIZE[typ]
+            elif typ in (ord("Z"), ord("H")):
+                end = d.find(b"\x00", p, rec_end)
+                end = end if end >= 0 else rec_end
+                out[tag] = d[p:end].decode("ascii", errors="replace")
+                p = end + 1
+            elif typ == ord("B"):
+                sub = d[p]
+                count = struct.unpack_from("<i", d, p + 1)[0]
+                vals = [struct.unpack_from(_FMT[sub], d,
+                                           p + 5 + _SIZE[sub] * k)[0]
+                        for k in range(count)] if sub in _FMT else []
+                out[tag] = vals
+                p += 5 + _SIZE.get(sub, 1) * count
+            else:
+                break
+        return out
+
+    @staticmethod
+    def _parse_string_tags(d: bytes, p: int, rec_end: int) -> Dict[str, object]:
+        """Extract Z-typed tags (XD stitched directions, XN amplicon, XR pair
+        direction) and int tags (XV/XW UMI counts) from a record's tag block."""
+        _TYPE_SIZE = {ord("A"): 1, ord("c"): 1, ord("C"): 1, ord("s"): 2,
+                      ord("S"): 2, ord("i"): 4, ord("I"): 4, ord("f"): 4}
+        _INT_FMT = {ord("c"): "<b", ord("C"): "<B", ord("s"): "<h",
+                    ord("S"): "<H", ord("i"): "<i", ord("I"): "<I"}
+        out: Dict[str, object] = {}
+        while p + 3 <= rec_end:
+            tag = d[p:p + 2].decode("ascii", errors="replace")
+            typ = d[p + 2]
+            p += 3
+            if typ in _TYPE_SIZE:
+                if tag in ("XV", "XW") and typ in _INT_FMT:
+                    out[tag] = struct.unpack_from(_INT_FMT[typ], d, p)[0]
+                p += _TYPE_SIZE[typ]
+            elif typ in (ord("Z"), ord("H")):
+                end = d.index(b"\x00", p, rec_end) if b"\x00" in d[p:rec_end] else rec_end
+                if tag in ("XD", "XN", "XR", "XW", "XU"):
+                    out[tag] = d[p:end].decode("ascii", errors="replace")
+                p = end + 1
+            elif typ == ord("B"):
+                sub = d[p]
+                count = struct.unpack_from("<i", d, p + 1)[0]
+                p += 5 + _TYPE_SIZE.get(sub, 1) * count
+            else:
+                break
+        return out
+
+    def fetch(self, ref_id: Optional[int] = None,
+              parse_tags: bool = False) -> ReadBatch:
+        """Decode records (optionally only those mapped to ref_id) into a
+        batch; parse_tags=True also decodes the tags pileup reads (XD, XN,
+        XR, XU, XV, XW) into xd_tags, xn_tags and extra_tags."""
         offsets = self._scan_record_offsets()
         d = self._data
         n_total = len(offsets) - 1
@@ -213,10 +285,10 @@ class BamReader:
 
         idx = np.nonzero(keep)[0]
         return self._decode_selected(d, offsets[:-1], ref_ids, poss, mapqs,
-                                     flags, idx)
+                                     flags, idx, parse_tags)
 
     def _decode_selected(self, d, offsets, ref_ids, poss, mapqs, flags,
-                         idx) -> ReadBatch:
+                         idx, parse_tags: bool = False) -> ReadBatch:
         m = len(idx)
         cigar_off = np.zeros(m + 1, dtype=np.int64)
         seq_off = np.zeros(m + 1, dtype=np.int64)
@@ -227,6 +299,9 @@ class BamReader:
         end_pos = np.empty(m, dtype=np.int32)
         mate_ref_id = np.empty(m, dtype=np.int32)
         mate_pos = np.empty(m, dtype=np.int32)
+        xd_tags: Optional[list] = [] if parse_tags else None
+        xn_tags: Optional[list] = [] if parse_tags else None
+        extra_tags: Optional[list] = [] if parse_tags else None
 
         for j, i in enumerate(idx):
             off = int(offsets[i])
@@ -247,6 +322,13 @@ class BamReader:
             seq_codes = SEQ_CODE_TO_ALLELE[nibbles[:l_seq]]
             p += nb
             quals = np.frombuffer(d, dtype=np.uint8, count=l_seq, offset=p).copy()
+            p += l_seq
+            if parse_tags:
+                block_size = struct.unpack_from("<i", d, off)[0]
+                tags = self._parse_string_tags(d, p, off + 4 + block_size)
+                xd_tags.append(tags.get("XD"))
+                xn_tags.append(tags.get("XN"))
+                extra_tags.append(tags)
 
             cigar_ops_l.append(ops)
             cigar_lens_l.append(lens)
@@ -270,17 +352,21 @@ class BamReader:
             seq=np.concatenate(seq_l) if m else np.empty(0, np.int8),
             qual=np.concatenate(qual_l) if m else np.empty(0, np.uint8),
             end_pos=end_pos,
+            xd_tags=xd_tags,
+            xn_tags=xn_tags,
+            extra_tags=extra_tags,
             mate_ref_id=mate_ref_id,
             mate_pos=mate_pos,
         )
 
-    def fetch_region(self, ref_id: int, beg0: int, end0: int) -> ReadBatch:
+    def fetch_region(self, ref_id: int, beg0: int, end0: int,
+                     parse_tags: bool = False) -> ReadBatch:
         """Reads of ref_id overlapping [beg0, end0) (0-based half-open).
         A lazy reader inflates only the chunks its .bai maps to the query
         (IOError without one); a whole-file reader decodes the chromosome
-        and masks it."""
+        and masks it. parse_tags as in fetch()."""
         if self._raw is None:
-            batch = self.fetch(ref_id)
+            batch = self.fetch(ref_id, parse_tags)
             return subset_batch(batch,
                                 (batch.pos < end0) & (batch.end_pos >= beg0))
         idx = self.index()
@@ -347,7 +433,7 @@ class BamReader:
             np.asarray(ref_ids_l, dtype=np.int32),
             np.asarray(poss_l, dtype=np.int32),
             np.asarray(mapqs_l, dtype=np.uint8),
-            np.asarray(flags_l, dtype=np.uint16), np.arange(m))
+            np.asarray(flags_l, dtype=np.uint16), np.arange(m), parse_tags)
         return subset_batch(batch, batch.end_pos >= beg0)
 
 

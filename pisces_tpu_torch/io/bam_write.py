@@ -44,7 +44,7 @@ class BamRecord:
     def __init__(self, name: str, ref_id: int, pos0: int, mapq: int, flag: int,
                  cigar: Sequence[Tuple[int, int]], seq: str, qual: Sequence[int],
                  next_ref_id: int = -1, next_pos: int = -1, tlen: int = 0,
-                 tags: Optional[Dict[str, str]] = None):
+                 tags: Optional[Dict[str, object]] = None):
         self.name = name
         self.ref_id = ref_id
         self.pos0 = pos0
@@ -86,7 +86,12 @@ class BamRecord:
                 body += np.minimum(np.asarray(q), 255).astype(
                     np.uint8).tobytes()
         for tag, value in self.tags.items():
-            body += tag.encode()[:2] + b"Z" + value.encode() + b"\x00"
+            # ints as BAM type 'i' (the XV/XW read-collapsed counts), every
+            # other value as a NUL-terminated 'Z' string
+            if isinstance(value, int):
+                body += tag.encode()[:2] + b"i" + struct.pack("<i", value)
+            else:
+                body += tag.encode()[:2] + b"Z" + value.encode() + b"\x00"
         return struct.pack("<i", len(body)) + body
 
 

@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from pisces_tpu_torch.options import REGION_SIZE
+
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "_native")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -490,14 +492,19 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
                   anchor_size: int,
                   anchored_positions: Optional[np.ndarray] = None,
                   ref_codes: Optional[np.ndarray] = None,
-                  track_open_ended: bool = True):
-    """Run the C++ pileup pass, in REGION_SIZE blocks, over the reader's
-    last fetched batch (`keep` is its read mask): the
+                  track_open_ended: bool = True,
+                  block_size: int = REGION_SIZE,
+                  base_dirs: Optional[np.ndarray] = None):
+    """Run the C++ pileup pass, in blocks of block_size positions, over the
+    reader's last fetched batch (`keep` is its read mask): the
     read events, their count and quality-error (f64) scatter, and, given
     ref_codes, the per-position scoring tuples, their dedup to unique gVCF
     tuples, and the SNV mismatch events. Returns (PileupCounts, mismatches)
     where mismatches is None without ref_codes, else (gpos, alt, dir, flags)
-    for SNV candidate aggregation.
+    for SNV candidate aggregation. `base_dirs` (int8, one code a base of the
+    batch, pileup/directions.batch_base_directions) gives stitched (XD)
+    reads their per-base directions; without it each base takes its read's
+    strand.
 
     The dense tensors, tuples and mismatches are views into the handle's
     buffers (tens of MB at panel depth): consume them before the handle's
@@ -508,7 +515,6 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
     from pisces_tpu_torch.domain.types import (
         NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES, num_anchor_indexes,
     )
-    from pisces_tpu_torch.options import REGION_SIZE as block_size
     if reader._n_decoded is None or len(keep) != reader._n_decoded:
         raise ValueError(f"keep has {len(keep)} entries; the reader's last "
                          f"fetch decoded {reader._n_decoded} reads")
@@ -523,10 +529,18 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
         ap = np.unique(np.asarray(anchored_positions, dtype=np.int64))
     rc = (np.ascontiguousarray(ref_codes, dtype=np.int8)
           if ref_codes is not None else None)
+    if base_dirs is not None:
+        base_dirs = np.ascontiguousarray(base_dirs, dtype=np.int8)
+        if len(base_dirs) != int(lib.bam_total_bases(h)):
+            raise ValueError(f"base_dirs has {len(base_dirs)} entries; the "
+                             f"reader's last fetch decoded "
+                             f"{int(lib.bam_total_bases(h))} bases")
     nb = lib.bam_pileup_mm(
         h, keep_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         min_bq, anchor_size, block_size,
-        ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(ap), None,
+        ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(ap),
+        (base_dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+         if base_dirs is not None else None),
         (rc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
          if rc is not None else None),
         0 if rc is None else len(rc), 1 if track_open_ended else 0)

@@ -137,6 +137,10 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
     score_device, mesh = app.scoring_setup(options, device, backend)
     chrom_names = genome.chromosome_names
     cache = ChrReferenceCache(genome, len(bam_paths))
+    # as in the reference's scheduler, the jobs take the forced alleles
+    # but not -PriorsPath, and no bias tables are written
+    forced = (app.load_forced_alleles(options.forced_alleles_paths)
+              if options.forced_alleles_paths else None)
 
     outputs = []
     writers: Dict[str, Tuple[VcfWriter, OrderedChromosomeWriter]] = {}
@@ -145,7 +149,9 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
         outputs.append(out_vcf)
         # sample column = bam file name incl. extension (reference
         # VcfFileWriter; cf. shipped expected outputs "PhiX_S3.bam")
-        writer = VcfWriter(out_vcf, VcfWriterConfig(options), genome.directory,
+        writer = VcfWriter(out_vcf,
+                           VcfWriterConfig(options, has_forced_gt=bool(forced)),
+                           genome.directory,
                            os.path.basename(bam_path),
                            genome.chromosome_lengths, options.command_line)
         writer.write_header()
@@ -192,7 +198,7 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
         try:
             intervals = app._load_intervals(options, chrom_name)
             alleles = app.call_chromosome(options, chrom, bam, intervals,
-                                          score_device, mesh)
+                                          score_device, mesh, forced)
             return (alleles, intervals)
         finally:
             cache.release(chrom_name)

@@ -9,14 +9,14 @@ rules that vectorize over the whole batch:
   - insertions/deletions per I/D cigar op with the flank-quality gates
 Aggregation is a keyed np.unique reduction instead of per-read objects.
 
-The reference package's tests hold this path equal to its exact per-read
-state machine, which MNV mode needs and which is not ported yet. Stitched
-(XD) per-base directions are not ported either: every base takes its read's
-direction.
+Equivalence with the exact per-read state machine
+(pileup/candidates.find_candidates_read) is asserted in tests; the exact
+path remains the MNV-mode, amplicon and read-collapsed implementation.
+Stitched (XD) reads take their per-base directions from base_dirs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +40,7 @@ def find_snv_candidates_vectorized(
     min_bq: int,
     anchor_size: int = 5,
     track_open_ended: bool = True,
+    base_dirs: Optional[np.ndarray] = None,
 ) -> List[Candidate]:
     """SNV candidates over the whole batch in one pass."""
     refseq_codes = BASE_TO_ALLELE[refseq]
@@ -67,7 +68,10 @@ def find_snv_candidates_vectorized(
     m_read = read_idx[mismatch]
     m_alt = read_code[mismatch]
 
-    m_dir = dirs[m_read].astype(np.int64)
+    if base_dirs is not None:
+        m_dir = base_dirs[m_seq_idx].astype(np.int64)
+    else:
+        m_dir = dirs[m_read].astype(np.int64)
 
     start1 = batch.pos.astype(np.int64) + 1
     end1 = batch.end_pos.astype(np.int64) + 1
@@ -165,8 +169,10 @@ def find_indel_candidates(
     min_bq: int,
     anchor_size: int = 5,
     track_open_ended: bool = True,
+    base_dirs: Optional[np.ndarray] = None,
 ) -> List[Candidate]:
     """Insertion/deletion candidates per I/D cigar op (sparse loop)."""
+    from pisces_tpu_torch.pileup.directions import support_direction
     dirs = read_directions(batch)
     agg: Dict[tuple, Candidate] = {}
     ref_len = len(refseq)
@@ -227,7 +233,8 @@ def find_indel_candidates(
         if l == OP_S and len(ops) > 1:
             l = ops[-2]
         max_pos = int(end1[i])
-        for c, _start_read in per_read:
+        xd = batch.xd_tags[i] if batch.xd_tags is not None else None
+        for c, start_read in per_read:
             if track_open_ended:
                 if f == OP_I and c.category == AlleleCategory.INSERTION \
                         and c.position == pos1 - 1:
@@ -241,7 +248,12 @@ def find_indel_candidates(
                 if l == OP_D and c.category == AlleleCategory.DELETION \
                         and c.position == max_pos:
                     c.open_on_right = True
-            d = int(dirs[i])
+            if xd and base_dirs is not None:
+                d = support_direction(int(c.category),
+                                      base_dirs[qs:batch.seq_off[i + 1]],
+                                      start_read, len(c.alt_allele))
+            else:
+                d = int(dirs[i])
             alt_len = (len(c.alt_allele)
                        if c.category == AlleleCategory.INSERTION else 1)
             c.support_by_direction[d] = 1

@@ -37,6 +37,9 @@ class BaseEvents:
     qerr: np.ndarray       # float32 [E] 10^(-q/10); 0 for deletion events
     is_deletion_gap: np.ndarray  # bool [E] True for gap/terminal deletion events
     read_start: np.ndarray = None  # int64 [E] 1-based start of the source read
+    # (shard routing key for mesh execution: all events of a read are owned
+    # by the position shard containing the read's start, mirroring the
+    # reference's read-to-block ingestion at RegionStateManager.cs:118-220)
 
 
 @dataclass
@@ -123,10 +126,14 @@ def anchor_indexes(gpos, start_pos, end_pos, anchor_size: int) -> np.ndarray:
 
 
 def build_base_events(batch: ReadBatch, keep: np.ndarray, min_base_quality: int,
-                      anchor_size: int) -> BaseEvents:
+                      anchor_size: int,
+                      base_dirs: np.ndarray = None) -> BaseEvents:
     """Generate the full pileup event stream (mapped bases + deletion gaps +
-    terminal deletions) for the kept reads. Every base takes its read's
-    strand direction (stitched XD directions are not ported yet).
+    terminal deletions) for the kept reads.
+
+    base_dirs: optional per-sequenced-base direction codes (stitched XD
+    support, pileup/directions.batch_base_directions); defaults to per-read
+    strand directions.
     """
     ex = expand_batch(batch, keep)
     dirs = read_directions(batch)
@@ -144,7 +151,7 @@ def build_base_events(batch: ReadBatch, keep: np.ndarray, min_base_quality: int,
     allele = batch.seq[m_seq].astype(np.int8)
     allele = np.where(quals < min_base_quality, np.int8(AlleleType.N), allele)
     anchor = anchor_indexes(m_gpos, start1[m_read], end1[m_read], anchor_size)
-    direction = dirs[m_read]
+    direction = base_dirs[m_seq] if base_dirs is not None else dirs[m_read]
     qerr = QUAL_TO_ERR[quals].astype(np.float32)
 
     # --- deletion gap events -------------------------------------------------
@@ -214,7 +221,12 @@ def build_base_events(batch: ReadBatch, keep: np.ndarray, min_base_quality: int,
         last_mapped = int(end1[i]) if not ends_in_d else int(end1[i]) - dlen
         if ends_in_d_before_s:
             last_mapped = int(end1[i]) - dlen
-        t_direction = dirs[i]
+        if base_dirs is not None:
+            # direction of the check-index base (reference semantics)
+            di = min(chk_idx, rl - 1)
+            t_direction = np.int8(base_dirs[batch.seq_off[i] + di])
+        else:
+            t_direction = dirs[i]
         t_gpos_l.append(np.arange(last_mapped + 1, last_mapped + dlen + 1, dtype=np.int64))
         t_dir_l.append(np.full(dlen, t_direction, dtype=np.int8))
         t_anchor_l.append(np.full(dlen, num_idx - 1, dtype=np.int8))

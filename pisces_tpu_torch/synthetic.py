@@ -6,12 +6,50 @@ messy BAM, and bench.generate_wgs_workload, a WGS-scale indexed one) on the
 port's own BAM writer and BGZF deflater, so that chip_smoke.py and the tests
 need nothing of the reference package to make their inputs: the same
 arguments and seed give the same bytes.
+
+The tagged workloads feed the caller options that read BAM tags, each in
+the format its reader module parses:
+  - write_stitched_workload: stitched read pairs with XD per-base direction
+    strings (pileup/directions.py: runs of <n>F, <n>S, <n>R over the
+    CIGAR-expanded read) under a Stitcher @PG header line;
+  - write_amplicon_workload: an amplicon panel whose reads carry their
+    amplicon's name in XN (pileup/amplicons.py);
+  - write_collapsed_workload: UMI read-collapsed reads with integer XV/XW
+    counts (duplex when both are non-zero) and an optional XR pair
+    direction (pileup/collapsed.py) under a collapsing @PG header line.
 """
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+# @PG lines that io/bam.BamHeader reads as the source marks
+STITCHED_PG = "@PG\tID:Stitcher\tPN:Stitcher\n"
+COLLAPSED_PG = "@PG\tID:UMI-Reco\tPN:reco\n"
+
+
+def _write_genome(gdir: str, seqs: dict, genome_name: str = "b") -> None:
+    """FASTA (70-column lines), .fai and GenomeSize.xml of `seqs`
+    (name -> uint8 ASCII sequence) into gdir."""
+    os.makedirs(gdir)
+    gs = []
+    for c, seq in seqs.items():
+        n = len(seq)
+        with open(os.path.join(gdir, f"{c}.fa"), "wb") as f:
+            f.write(f">{c}\n".encode())
+            for i in range(0, n, 70):
+                f.write(seq[i:i + 70].tobytes() + b"\n")
+        with open(os.path.join(gdir, f"{c}.fa.fai"), "w") as f:
+            f.write(f"{c}\t{n}\t{len(c) + 2}\t70\t71\n")
+        gs.append(f'\t<chromosome fileName="{c}.fa" contigName="{c}" '
+                  f'totalBases="{n}" isCircular="false" md5="x" '
+                  f'ploidy="2" knownBases="{n}" />')
+    with open(os.path.join(gdir, "GenomeSize.xml"), "w") as f:
+        f.write(f'<sequenceSizes genomeName="{genome_name}">\n'
+                + "\n".join(gs) + "\n</sequenceSizes>")
 
 
 def write_synthetic_workload(tmp: str, n_chroms: int, chrom_len: int,
@@ -33,33 +71,15 @@ def write_synthetic_workload(tmp: str, n_chroms: int, chrom_len: int,
     branches of the CIGAR walk and the quality-filter path at scale
     (reference hot profile: CandidateVariantFinder.cs:90-168,
     AlleleCountHelper.cs:22-80, CoverageCalculator.cs:162-331)."""
-    import shutil
-
     from pisces_tpu_torch.io.bam_write import BamRecord, BamWriter, parse_cigar_string
 
     rng = np.random.default_rng(seed)
     shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(os.path.join(tmp, "genome"))
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    bases = _BASES
     chroms = (list(chrom_names) if chrom_names is not None
               else [f"chr{i + 1}" for i in range(n_chroms)])
-    seqs = {}
-    gs = []
-    for c in chroms:
-        seq = bases[rng.integers(0, 4, chrom_len)]
-        seqs[c] = seq
-        with open(os.path.join(tmp, "genome", f"{c}.fa"), "wb") as f:
-            f.write(f">{c}\n".encode())
-            for i in range(0, chrom_len, 70):
-                f.write(seq[i:i + 70].tobytes() + b"\n")
-        with open(os.path.join(tmp, "genome", f"{c}.fa.fai"), "w") as f:
-            f.write(f"{c}\t{chrom_len}\t{len(c) + 2}\t70\t71\n")
-        gs.append(f'\t<chromosome fileName="{c}.fa" contigName="{c}" '
-                  f'totalBases="{chrom_len}" isCircular="false" md5="x" '
-                  f'ploidy="2" knownBases="{chrom_len}" />')
-    with open(os.path.join(tmp, "genome", "GenomeSize.xml"), "w") as f:
-        f.write('<sequenceSizes genomeName="b">\n' + "\n".join(gs)
-                + "\n</sequenceSizes>")
+    seqs = {c: bases[rng.integers(0, 4, chrom_len)] for c in chroms}
+    _write_genome(os.path.join(tmp, "genome"), seqs)
 
     # prebuilt cigar variants (parse once, reuse per read)
     cig_clean = parse_cigar_string(f"{read_len}M")
@@ -139,8 +159,6 @@ def generate_wgs_workload(tmp: str, n_reads: int = 10_000_000,
     CoverageCalculator.cs:162-331). Records of different CIGAR lengths have
     different byte sizes, so the classes are assembled separately and
     merged byte-wise in position order."""
-    import shutil
-
     from pisces_tpu_torch.io.bai import (
         LINEAR_SHIFT, BamIndex, RefIndex, write_bai,
     )
@@ -365,3 +383,268 @@ def generate_wgs_workload(tmp: str, n_reads: int = 10_000_000,
     ref.linear = linear.tolist()
     write_bai(BamIndex([ref], 0), w.path + ".bai")
     return w.path, gdir
+
+
+def _carry_snvs(rseq: bytearray, p: int, sites: np.ndarray, alts: dict):
+    """Write the alt base of every site in `sites` inside the read placed
+    at 1-based p (reference-only span len(rseq))."""
+    lo = int(np.searchsorted(sites, p))
+    hi = int(np.searchsorted(sites, p + len(rseq)))
+    for s in sites[lo:hi].tolist():
+        rseq[s - p] = alts[s]
+
+
+def _sites(rng, chrom_len: int, margin: int, n: int, seq: np.ndarray):
+    """n sorted SNV sites (1-based) at least `margin` from either end, each
+    with an alt base (the next base of ACGT after the reference's)."""
+    sites = np.sort(rng.choice(np.arange(margin, chrom_len - margin), n,
+                               replace=False))
+    alts = {int(s): int(_BASES[(int(np.searchsorted(_BASES, seq[s - 1]))
+                                + 1) % 4]) for s in sites.tolist()}
+    return sites, alts
+
+
+def write_stitched_workload(tmp: str, chrom_len: int, n_fragments: int,
+                            read_len: int = 100, stitched_fraction: float = 0.85,
+                            seed: int = 0, index: bool = False):
+    """One chromosome of read pairs, most already stitched (the Stitcher's
+    output): a stitched read spans its fragment, carries the XD tag
+    "<a><D1><o>S<b><D2>" (its first mate's own bases in that mate's
+    direction, the o overlapping bases stitched, then the second mate's)
+    over its CIGAR-expanded length, and the header holds a Stitcher @PG
+    line. The rest stay unstitched proper pairs without XD. Mates overlap
+    by 10 to read_len - 10 bases; 1% of stitched reads carry a 2bp
+    deletion and 1% a 2bp insertion mid-read; 15% end in a Q12 10bp tail;
+    30% of fragments carry the planted SNVs (one per 500 bp) they cover.
+    Returns (bam path, genome dir)."""
+    from pisces_tpu_torch.io.bam_write import (
+        BamRecord, BamWriter, parse_cigar_string,
+    )
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(tmp, ignore_errors=True)
+    seq = _BASES[rng.integers(0, 4, chrom_len)]
+    _write_genome(os.path.join(tmp, "genome"), {"chr1": seq})
+    sites, alts = _sites(rng, chrom_len, 2 * read_len,
+                         max(8, chrom_len // 500), seq)
+    starts = np.sort(rng.integers(1, chrom_len - 2 * read_len - 4,
+                                  n_fragments))
+    overlaps = rng.integers(10, read_len - 10, n_fragments)
+    kind = rng.random(n_fragments)
+    rev_first = rng.random(n_fragments) < 0.5
+    carrier = rng.random(n_fragments) < 0.3
+    low_tail = rng.random(n_fragments) < 0.15
+    noise = bytes(_BASES[rng.integers(0, 4, 2 * n_fragments)])
+
+    def quals(n, tail):
+        return [30] * (n - 10) + [12] * 10 if tail else [30] * n
+
+    w = BamWriter(os.path.join(tmp, "b.bam"), ["chr1"], [chrom_len],
+                  extra_header_text=STITCHED_PG)
+    for i in range(n_fragments):
+        p, ov = int(starts[i]), int(overlaps[i])
+        frag = 2 * read_len - ov
+        d1, d2 = ("R", "F") if rev_first[i] else ("F", "R")
+        ref = seq[p - 1:p - 1 + frag + 2].tobytes()
+        if kind[i] < stitched_fraction:
+            h = frag // 2
+            if kind[i] < 0.01:           # 2bp deletion mid-read
+                rseq = bytearray(ref[:h] + ref[h + 2:frag + 2])
+                cigar, expanded = f"{h}M2D{frag - h}M", frag + 2
+            elif kind[i] < 0.02:         # 2bp insertion mid-read
+                rseq = bytearray(ref[:h] + noise[2 * i:2 * i + 2]
+                                 + ref[h:frag - 2])
+                cigar, expanded = f"{h}M2I{frag - h - 2}M", frag
+            else:
+                rseq = bytearray(ref[:frag])
+                if carrier[i]:
+                    _carry_snvs(rseq, p, sites, alts)
+                cigar, expanded = f"{frag}M", frag
+            a = (expanded - ov) // 2
+            xd = f"{a}{d1}{ov}S{expanded - ov - a}{d2}"
+            w.records.append(BamRecord(
+                f"s{i}", 0, p - 1, 60, 0x10 if rev_first[i] else 0,
+                parse_cigar_string(cigar), rseq.decode(),
+                quals(len(rseq), low_tail[i]), tags={"XD": xd}))
+            continue
+        p2 = p + frag - read_len
+        for mate, (q, first) in enumerate(((p, True), (p2, False))):
+            rseq = bytearray(seq[q - 1:q - 1 + read_len].tobytes())
+            if carrier[i]:
+                _carry_snvs(rseq, q, sites, alts)
+            reverse = rev_first[i] == first
+            flag = 0x1 | 0x2 | (0x40 if first else 0x80) | \
+                (0x10 if reverse else 0) | (0 if reverse else 0x20)
+            w.records.append(BamRecord(
+                f"u{i}", 0, q - 1, 60, flag,
+                parse_cigar_string(f"{read_len}M"), rseq.decode(),
+                quals(read_len, low_tail[i] and mate == 1),
+                next_ref_id=0, next_pos=(p2 if first else p) - 1))
+    w.write(index=index)
+    return w.path, os.path.join(tmp, "genome")
+
+
+def write_amplicon_workload(tmp: str, n_amplicons: int, depth: int = 1000,
+                            amplicon_len: int = 150, overlap: int = 50,
+                            read_len: int = 100, seed: int = 0,
+                            index: bool = False):
+    """An amplicon panel on one chromosome: n_amplicons amplicons tiled
+    with `overlap` shared bases, each read starting at its amplicon's start
+    (forward) or ending at its end (reverse), trimmed by 0-29 bases at its
+    3' end, carrying the amplicon's name in XN. Each amplicon gets
+    depth * U(0.7, 1.3) reads. Every fourth amplicon holds a real SNV at
+    15% in its middle, on the reads of every amplicon that covers it; every
+    fourth (offset by two) an artifact SNV in the zone it shares with the
+    next amplicon, on 30% of its own reads only, which the amplicon-bias
+    filter should flag. 0.2% base errors. Returns (bam path, genome dir)."""
+    from pisces_tpu_torch.io.bam_write import (
+        BamRecord, BamWriter, parse_cigar_string,
+    )
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(tmp, ignore_errors=True)
+    step = amplicon_len - overlap
+    pad = 2 * read_len
+    chrom_len = 2 * pad + step * (n_amplicons - 1) + amplicon_len
+    seq = _BASES[rng.integers(0, 4, chrom_len)]
+    _write_genome(os.path.join(tmp, "genome"), {"chr1": seq})
+
+    def alt(s):
+        return int(_BASES[(int(np.searchsorted(_BASES, seq[s - 1])) + 1) % 4])
+
+    real = {pad + k * step + amplicon_len // 2 + 1: alt(
+        pad + k * step + amplicon_len // 2 + 1)
+        for k in range(0, n_amplicons, 4)}
+    real_sites = np.array(sorted(real), np.int64)
+    artifact = {k: pad + k * step + step + overlap // 2 + 1
+                for k in range(2, n_amplicons - 1, 4)}
+    w = BamWriter(os.path.join(tmp, "b.bam"), ["chr1"], [chrom_len])
+    cigars = {}
+    for k in range(n_amplicons):
+        a0 = pad + k * step                     # 0-based amplicon start
+        n = int(depth * rng.uniform(0.7, 1.3))
+        lens = read_len - rng.integers(0, 30, n)
+        reverse = rng.random(n) < 0.5
+        real_carrier = rng.random(n) < 0.15
+        art_carrier = rng.random(n) < 0.3
+        for j in range(n):
+            ln = int(lens[j])
+            q0 = a0 + amplicon_len - ln if reverse[j] else a0
+            rseq = bytearray(seq[q0:q0 + ln].tobytes())
+            if real_carrier[j]:
+                _carry_snvs(rseq, q0 + 1, real_sites, real)
+            s = artifact.get(k)
+            if s is not None and art_carrier[j] and q0 < s <= q0 + ln:
+                rseq[s - 1 - q0] = alt(s)
+            for e in np.flatnonzero(rng.random(ln) < 0.002).tolist():
+                rseq[e] = b"ACGT"[(b"ACGT".index(rseq[e]) + 1) % 4]
+            if ln not in cigars:
+                cigars[ln] = parse_cigar_string(f"{ln}M")
+            w.records.append(BamRecord(
+                f"a{k}_{j}", 0, q0, 60, 0x10 if reverse[j] else 0,
+                cigars[ln], rseq.decode(), [30] * ln,
+                tags={"XN": f"chr1_amp{k}"}))
+    w.write(index=index)
+    return w.path, os.path.join(tmp, "genome")
+
+
+def write_collapsed_workload(tmp: str, chrom_len: int, n_reads: int,
+                             read_len: int = 100, seed: int = 0,
+                             index: bool = False):
+    """UMI read-collapsed proper pairs on one chromosome, under a
+    collapsing @PG header line: 90% of reads carry integer XV (1-4) and XW
+    (0-2) family counts (duplex when XW > 0), a third of those also an XR
+    pair direction ("FR" or "RF"); the rest are plain reads. 20% of reads
+    carry the planted SNVs (one per 400 bp) they cover; 20% end in a Q12
+    15bp tail. Returns (bam path, genome dir)."""
+    from pisces_tpu_torch.io.bam_write import (
+        BamRecord, BamWriter, parse_cigar_string,
+    )
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(tmp, ignore_errors=True)
+    seq = _BASES[rng.integers(0, 4, chrom_len)]
+    _write_genome(os.path.join(tmp, "genome"), {"chr1": seq})
+    sites, alts = _sites(rng, chrom_len, 2 * read_len,
+                         max(8, chrom_len // 400), seq)
+    starts = np.sort(rng.integers(1, chrom_len - 2 * read_len, n_reads))
+    collapsed = rng.random(n_reads) < 0.9
+    xv = rng.integers(1, 5, n_reads)
+    xw = rng.integers(0, 3, n_reads)
+    xr = rng.random(n_reads)
+    first = rng.random(n_reads) < 0.5
+    reverse = rng.random(n_reads) < 0.5
+    carrier = rng.random(n_reads) < 0.2
+    dip = rng.random(n_reads) < 0.2
+    cigar = parse_cigar_string(f"{read_len}M")
+    q30 = [30] * read_len
+    q_dip = [30] * (read_len - 15) + [12] * 15
+    w = BamWriter(os.path.join(tmp, "b.bam"), ["chr1"], [chrom_len],
+                  extra_header_text=COLLAPSED_PG)
+    for i in range(n_reads):
+        p = int(starts[i])
+        rseq = bytearray(seq[p - 1:p - 1 + read_len].tobytes())
+        if carrier[i]:
+            _carry_snvs(rseq, p, sites, alts)
+        tags = {}
+        if collapsed[i]:
+            tags = {"XV": int(xv[i]), "XW": int(xw[i])}
+            if xr[i] < 1 / 3:
+                tags["XR"] = "FR" if xr[i] < 1 / 6 else "RF"
+        flag = 0x1 | 0x2 | (0x40 if first[i] else 0x80) | \
+            (0x10 if reverse[i] else 0x20)
+        mate = p + 50 if not reverse[i] else max(1, p - 50)
+        w.records.append(BamRecord(
+            f"c{i}", 0, p - 1, 60, flag, cigar, rseq.decode(),
+            q_dip if dip[i] else q30, next_ref_id=0, next_pos=mate - 1,
+            tags=tags))
+    w.write(index=index)
+    return w.path, os.path.join(tmp, "genome")
+
+
+def write_sites_vcf(path: str, sites) -> str:
+    """A minimal VCF of (chrom, pos, ref, alt) rows, the form that
+    -ForcedAlleles and -PriorsPath read (io/vcf_read)."""
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.1\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for chrom, pos, ref, alt in sites:
+            f.write(f"{chrom}\t{pos}\t.\t{ref}\t{alt}\t.\t.\t.\n")
+    return path
+
+
+def forced_and_prior_sites(vcf_body, seq: np.ndarray, chrom: str, n: int,
+                           seed: int = 0):
+    """Sites for a forced-allele VCF and a priors VCF from a run's VCF body
+    (lines without '#') and its chromosome's sequence (uint8 ASCII):
+    forced holds n // 2 called SNVs of `chrom` and n - n // 2 reference
+    loci away from any call with a non-reference alt, two of them at one
+    locus (several lines a locus); priors holds the same called SNVs plus
+    n // 4 padded MNVs (the base before, then two changed bases), the form
+    -TrimMnvPriors trims. Returns (forced rows, prior rows)."""
+    rng = np.random.default_rng(seed)
+    called = []
+    for ln in vcf_body:
+        f = ln.split("\t")
+        if (f[0] == chrom and len(f[3]) == 1 and len(f[4]) == 1
+                and f[4] != "."):
+            called.append((chrom, int(f[1]), f[3], f[4]))
+    called = called[:n // 2]
+    near = {p + d for _c, p, _r, _a in called for d in range(-5, 6)}
+    free = np.array([p for p in range(200, len(seq) - 200)
+                     if p not in near], np.int64)
+    picks = np.sort(rng.choice(free, n - len(called), replace=False))
+    forced = list(called)
+    for k, p in enumerate(picks.tolist()):
+        ref = chr(seq[p - 1])
+        alts = [b for b in "ACGT" if b != ref]
+        forced.append((chrom, p, ref, alts[k % 3]))
+        if k == 0:
+            forced.append((chrom, p, ref, alts[1]))
+    priors = list(called)
+    for p in picks[:n // 4].tolist():
+        ref = seq[p - 2:p + 1].tobytes().decode()
+        alt = ref[0] + "".join("ACGT"[("ACGT".index(b) + 1) % 4]
+                               for b in ref[1:])
+        priors.append((chrom, p - 1, ref, alt))
+    return sorted(forced), sorted(priors)

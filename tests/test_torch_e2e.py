@@ -106,7 +106,8 @@ def flow_counts(monkeypatch):
 def _run(main, bam, genome, out, gvcf, extra=()):
     assert main(["-bam", bam, "-g", genome, "-o", out, "-gVCF", gvcf,
                  *extra]) == 0
-    name = "b.genome.vcf" if gvcf == "true" else "b.vcf"
+    stem = os.path.basename(bam)[:-len(".bam")]
+    name = f"{stem}.genome.vcf" if gvcf == "true" else f"{stem}.vcf"
     with open(os.path.join(out, name)) as f:
         return [ln for ln in f.read().splitlines() if not ln.startswith("#")]
 
@@ -237,12 +238,16 @@ def test_mesh_matches_jax_mesh_and_single_device(workload, device_everywhere,
 
 
 def test_default_run_takes_the_native_flow(workload, flow_counts):
+    from pisces_tpu_torch.utils.metrics import metrics
     tmp, bam, genome, _ = workload
+    metrics.reset()
     port = _run(torch_main, bam, genome, os.path.join(tmp, "dflt"), "true",
                 ["-device", "cpu"])
     assert len(port) > 0
-    # once per chromosome, and no Python events
+    # once per chromosome, and no Python events; the pileup stage's calls
+    # count the native passes (chip_smoke.py's WGS phase reads them so)
     assert flow_counts == {"native_pileup": 2, "build_base_events": 0}
+    assert metrics.snapshot()["stages"]["pileup"]["calls"] == 2
 
 
 def test_mesh_takes_python_events_on_the_native_batch(workload, flow_counts,
@@ -364,7 +369,13 @@ def test_port_import_leaves_jax_unloaded():
             "pisces_tpu_torch.genotype.diploid, "
             "pisces_tpu_torch.genotype.adaptive, pisces_tpu_torch.io.vcf_read, "
             "pisces_tpu_torch.satellites.adaptive_gt, "
-            "pisces_tpu_torch.apps.titration, pisces_tpu_torch.apps.accuracy; "
+            "pisces_tpu_torch.apps.titration, pisces_tpu_torch.apps.accuracy, "
+            "pisces_tpu_torch.pileup.directions, "
+            "pisces_tpu_torch.pileup.collapsed, "
+            "pisces_tpu_torch.pileup.amplicons, "
+            "pisces_tpu_torch.ops.amplicon_bias, "
+            "pisces_tpu_torch.ops.exact_coverage, "
+            "pisces_tpu_torch.io.bias_writers; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pisces_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -380,14 +391,3 @@ def test_main_without_cuda_raises_unless_cpu(workload, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             torch_main(["-bam", bam, "-g", genome, "-o",
                         os.path.join(tmp, "nocuda"), "-backend", backend])
-
-
-@pytest.mark.parametrize("flags", [
-    ["-CallMNVs", "true"], ["-CoverageMethod", "exact"],
-    ["-abfilter", "0.01"], ["-PriorsPath", "p.vcf"],
-])
-def test_options_outside_the_slice_raise(workload, flags):
-    tmp, bam, genome, _ = workload
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        torch_main(["-bam", bam, "-g", genome, "-o",
-                    os.path.join(tmp, "oos"), "-device", "cpu", *flags])
