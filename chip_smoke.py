@@ -54,8 +54,8 @@ its result lines:
      tuple kernel once a chromosome from the pool's threads, counted
      exactly, and every body must be byte-equal to the serial one;
   C. WGS streaming — the reference bench's WGS workload
-     (generate_wgs_workload) cut to one 11 Mb chromosome and 3.3M messy
-     reads (30x, six windows; the bench's is 33 Mb and 10M reads),
+     (generate_wgs_workload) cut to one 5.5 Mb chromosome and 1.65M messy
+     reads (30x, three windows; the bench's is 33 Mb and 10M reads),
      generated in a child process, then the CLI as a child process
      with -gVCF true -WindowSize 2000000 on the card and again with
      -backend numpy: the native pileup must run once a window, and the two
@@ -107,8 +107,25 @@ its result lines:
      mnv stage, direct arm: 40 haplotypes, 300x over 30 kb, seed 13) on the
      card must give recall = precision = 1.00; then its BAM with -CallMNVs
      and -gVCF true in 10 kb of it, torch and numpy bodies byte-equal;
+  J. Gemini -> the caller -> Scylla — (a) unstitched pairs over phase
+     3's 200 kb (40,000 fragments, 80,000 reads, no Stitcher @PG line; 1%
+     of fragments carry a recurrent 2 bp indel, half of them under a clean
+     M CIGAR) through the port's Gemini (native stitcher and realigner),
+     its output through the CLI with -UseStitchedXD true -gVCF true
+     (-backend torch and numpy), each gVCF through Scylla: score_tuples
+     must launch once on tuples with non-zero stitched columns, and the
+     bodies and the phased gVCFs must agree (reference-line SB within the
+     phase-2 tolerance); (b) (a)'s pairs of its first 25 kb native against
+     the Python twin (records and .indels.csv equal), then a 4 x 100 kb,
+     200,000-read workload whole, with -RegionSize 20000 and through
+     run_gemini_multi with 4 workers, each in a child under the rusage
+     launcher: equal records, no torch in the Gemini processes and the
+     workers' peak RSS far below a CUDA process's; (c) the reference
+     bench's realigner-engaged corpus, native against the twin, byte-equal;
+     (d) apps/accuracy.run_mnv_accuracy's Scylla arm on the card, recall =
+     precision = 1.00;
      Phase E runs right after phase A, on its workload, then phase G; phase
-     D right after phase B, then phases H and I; phase F runs last;
+     D right after phase B, then phases H, I and J; phase F runs last;
   6. timing — each kernel on the main path's tuples, 200,000 random tuples
      and each mesh's first tile: the wrapper's time (CUDA events over 50
      back-to-back calls), the kernel's device-only time (torch.profiler's
@@ -162,10 +179,10 @@ SCHED_RUNS = ((), ("-MaxThreads", "4"),
               ("-MaxThreads", "4", "-ThreadByChr", "true"),
               ("-MultiProcess", "true", "-MaxThreads", "4"))
 # phase C: the reference bench's WGS stage (bench.py "wgs", 10M reads over
-# 33 Mb in 2 Mb windows) cut to a third of its length and reads, so the
-# script fits its time: 30x and six windows kept
-WGS_READS = 3_300_000
-WGS_LEN = 11_000_000
+# 33 Mb in 2 Mb windows) cut to a sixth of its length and reads, so the
+# script fits its time with phase J: 30x and three windows kept
+WGS_READS = 1_650_000
+WGS_LEN = 5_500_000
 WGS_WINDOW = 2_000_000
 # phase D: the SIGKILL arm's pause before each chromosome (so the kill lands
 # between a worker's two) and host 0's wait without shard progress
@@ -197,6 +214,30 @@ RC_READS = 15_000
 # phase I: the -gVCF run on the MNV accuracy BAM (30 kb, object path),
 # cut to 10 kb of it
 MNV_GVCF_REGION = (10_001, 20_000)
+
+# phase J: Gemini (stitcher, realigner, pair classifier) -> the caller ->
+# Scylla. (a) unstitched pairs over phase 3's 200 kb at phase H(a)'s
+# 40,000 fragments (80,000 reads, about 30x; 1% of fragments carry one of
+# the recurrent 2 bp indels); (b) the pairs of (a)'s first 25 kb (about
+# 5,000) against the Python twin, then 4 x 100 kb at 200,000 reads whole,
+# in 20 kb regions and over 4 worker processes; (c) the reference bench's
+# realigner-engaged corpus (15 kb, 8,000 reads, 10 recurrent indel sites,
+# seed 21); (d) the MNV accuracy arm through Scylla
+GEMINI_FRAGMENTS = 40_000
+GEMINI_TWIN_SPAN = 25_000
+GEMINI_CHROMS = 4
+GEMINI_CHROM_LEN = 100_000
+GEMINI_MULTI_FRAGMENTS = 25_000
+GEMINI_REGION = 20_000
+GEMINI_WORKERS = 4
+# -RegionSize finds indel targets in each block (as the reference package
+# does), so a pair that lies within a fragment's span (at most 2 x 100 bp +
+# a 40 bp gap) of a block edge may be realigned and stitched otherwise
+# than in the whole run (ROADMAP Queue 3); every other record must be equal
+GEMINI_EDGE_ZONE = 250
+# a spawned child that opens CUDA holds about 4.64 GiB of host RSS (PERF.md
+# section 5); Gemini's host-only workers must stay far below it
+GEMINI_WORKER_RSS_MAX = 2 << 30
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): f32 outside the tensor cores, and HBM3 bandwidth
@@ -1461,6 +1502,310 @@ def run_mnv_paths(work: str, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase J: Gemini -> the caller -> Scylla
+# ---------------------------------------------------------------------------
+
+def _gemini_records(path):
+    """(reference id, 0-based position, record bytes) of every record of
+    a BAM in file order: every field and tag (XD, and Gemini's XT and XP)."""
+    import struct
+    from pisces_tpu_torch.io.bgzf import decompress
+    with open(path, "rb") as f:
+        d = decompress(f.read())
+    p = 8 + struct.unpack_from("<i", d, 4)[0]
+    for _ in range(struct.unpack_from("<i", d, p)[0]):
+        p += 8 + struct.unpack_from("<i", d, p + 4)[0]
+    p += 4
+    rows = []
+    while p < len(d):
+        size = struct.unpack_from("<i", d, p)[0]
+        rid, pos = struct.unpack_from("<ii", d, p + 4)
+        rows.append((rid, pos, d[p:p + 4 + size]))
+        p += 4 + size
+    return rows
+
+
+def _python_twin(on: bool) -> None:
+    """Gemini's native stitcher, alignment summary and realigner core
+    (on=False) or their Python twins (on=True)."""
+    from pisces_tpu_torch.preprocessing import realigner, stitcher
+    stitcher.USE_NATIVE = not on
+    realigner.USE_NATIVE_SUMMARY = not on
+    realigner.USE_NATIVE_REALIGN = not on
+
+
+def _gemini_summary(stats) -> str:
+    classes = ", ".join(f"{k[4:]} {v:,}" for k, v in sorted(stats.items())
+                        if k.startswith("cls_"))
+    return (f"pair classes (reads): {classes}; {stats.get('indel_targets', 0)}"
+            f" indel targets, {stats.get('realign_attempts', 0):,} realign "
+            f"attempts, {stats.get('realigned', 0):,} realigned, "
+            f"{stats.get('confirmed', 0):,} confirmed; "
+            f"{stats.get('stitched_pairs', 0):,} pairs stitched: "
+            f"{stats.get('stitched_batched', 0):,} of "
+            f"{stats.get('stitch_batched_pairs', 0):,} pairs by the columnar "
+            f"native call, {stats.get('stitched_per_pair', 0):,} of "
+            f"{stats.get('stitch_per_pair_pairs', 0):,} by the per-pair path")
+
+
+def _scylla(vcf, bam, genome, out):
+    from pisces_tpu_torch.phasing.scylla import run_scylla
+    t0 = time.perf_counter()
+    path = run_scylla(vcf, bam, genome, out)
+    return time.perf_counter() - t0, path
+
+
+def run_gemini_pipeline(work: str):
+    """Phase J(a): Gemini on unstitched pairs, its output through the
+    caller with -UseStitchedXD true on the card and on the host, each VCF
+    through Scylla. Returns each caller run's record and the stitched
+    tuples' count."""
+    from pisces_tpu_torch.entry import compare_vcf_bodies, vcf_body
+    from pisces_tpu_torch.preprocessing.gemini import run_gemini
+    from pisces_tpu_torch.synthetic import write_paired_workload
+
+    t0 = time.perf_counter()
+    bam, genome = write_paired_workload(os.path.join(work, "pairs"),
+                                        CHROM_LEN, GEMINI_FRAGMENTS,
+                                        seed=SEED)
+    log(f"J(a): paired workload, 1 x {CHROM_LEN:,} bp, {GEMINI_FRAGMENTS:,} "
+        f"unstitched fragments ({2 * GEMINI_FRAGMENTS:,} reads, no Stitcher "
+        f"@PG), written in {time.perf_counter() - t0:.1f} s")
+    stats = {}
+    t0 = time.perf_counter()
+    out = run_gemini(bam, genome, os.path.join(work, "g.bam"),
+                     stats=stats)
+    wall = time.perf_counter() - t0
+    log(f"J(a): Gemini (native stitcher and realigner) {wall:.2f} s, "
+        f"{2 * GEMINI_FRAGMENTS / wall:,.0f} reads/s; "
+        + _gemini_summary(stats))
+    if not (stats.get("indel_targets", 0) and stats.get("realigned", 0)
+            and stats.get("stitched_batched", 0)):
+        raise AssertionError(f"J(a): Gemini found no indel target, realigned "
+                             f"nothing or stitched nothing natively: {stats}")
+    tuples = []
+    runs, bodies = _option_runs(
+        "Gemini output -UseStitchedXD", out, genome,
+        os.path.join(work, "call"), ("-UseStitchedXD", "true"),
+        tuples=tuples)
+    _launched_once(runs, "J(a)")
+    t = tuples[0]
+    n_st = int(((t[:, 2] > 0) | (t[:, 5] > 0)).sum())
+    if n_st == 0:
+        raise AssertionError("J(a): no tuple with stitched counts")
+    n = compare_vcf_bodies(bodies["torch"], bodies["numpy"])
+    log(f"J(a): score_tuples got {t.shape[0]:,} unique tuples, {n_st:,} with "
+        f"non-zero stitched columns; {n:,} gVCF lines agree between the "
+        "backends (reference-line SB within the phase-2 tolerance)"
+        + (", byte-equal" if bodies["torch"] == bodies["numpy"] else ""))
+    phased = {}
+    for backend in ("torch", "numpy"):
+        s, path = _scylla(
+            os.path.join(work, f"call_{backend}", "g.genome.vcf"), out,
+            genome, os.path.join(work, f"phased_{backend}"))
+        phased[backend] = vcf_body(path)
+        n_new = len(set(phased[backend]) - set(bodies[backend]))
+        log(f"J(a): Scylla on the -backend {backend} gVCF: {s:.2f} s, "
+            f"{len(phased[backend]):,} lines, {n_new} of them rewritten or "
+            "added by phasing")
+        if n_new == 0:
+            raise AssertionError(f"J(a): Scylla phased nothing (-backend "
+                                 f"{backend})")
+    n = compare_vcf_bodies(phased["torch"], phased["numpy"])
+    n_diff = sum(a != b for a, b in zip(phased["torch"], phased["numpy"]))
+    log(f"J(a): phased gVCFs agree ({n:,} lines; {n_diff} reference lines "
+        "differ only in SB, within the phase-2 tolerance)")
+    return list(runs.values()), n_st
+
+
+_GEMINI_CHILD = """
+import json, resource
+from pisces_tpu_torch.preprocessing import gemini as G
+mode, bam, genome, out = sys.argv[1:5]
+stats = {}
+if mode == "multi":
+    G.run_gemini_multi(bam, genome, out, n_processes=int(sys.argv[5]),
+                       stats=stats)
+else:
+    G.run_gemini(bam, genome, out, G.GeminiOptions(
+        region_size=int(sys.argv[5])), stats=stats)
+print("workers peak RSS KiB",
+      resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)
+print("torch imported", "torch" in sys.modules)
+print("stats", json.dumps(stats))
+"""
+
+
+def run_gemini_streams(work: str, pairs_bam: str, genome: str):
+    """Phase J(b): the pairs of J(a)'s first GEMINI_TWIN_SPAN bases native
+    against the Python twin; then a 4-chromosome workload whole, in
+    regions and over worker processes, each in a child under the rusage
+    launcher."""
+    from collections import Counter
+
+    import numpy as np
+    from pisces_tpu_torch.io.bam import subset_batch
+    from pisces_tpu_torch.io.fasta import Genome
+    from pisces_tpu_torch.io.native import open_bam
+    from pisces_tpu_torch.preprocessing.gemini import (
+        GeminiOptions, process_chromosome,
+    )
+    from pisces_tpu_torch.synthetic import write_paired_workload
+
+    batch = open_bam(pairs_bam).fetch(0, parse_names=True)
+    keep = (batch.pos < GEMINI_TWIN_SPAN) & (batch.mate_pos
+                                               < GEMINI_TWIN_SPAN)
+    sub = subset_batch(batch, keep)
+    seq = Genome(genome).get_chr_reference("chr1").sequence
+    outs, walls = {}, {}
+    for twin in (False, True):
+        _python_twin(twin)
+        rows = []
+        try:
+            t0 = time.perf_counter()
+            recs, stats = process_chromosome("chr1", seq, sub,
+                                             GeminiOptions(), sub.names,
+                                             indel_csv_rows=rows)
+            walls[twin] = time.perf_counter() - t0
+        finally:
+            _python_twin(False)
+        outs[twin] = ([(r.name, r.ref_id, r.pos0, r.mapq, r.flag,
+                        tuple(r.cigar), r.seq, tuple(r.qual),
+                        tuple(sorted((r.tags or {}).items())))
+                       for r in recs], rows)
+    if outs[False] != outs[True]:
+        raise AssertionError("J(b): native Gemini differs from its Python "
+                             "twin")
+    log(f"J(b): {sub.n // 2:,} pairs of J(a)'s first {GEMINI_TWIN_SPAN:,} bp:"
+        f" native {walls[False]:.2f} s, Python twin {walls[True]:.2f} s; "
+        f"records ({len(outs[False][0]):,}) and .indels.csv rows "
+        f"({len(outs[False][1]):,}) equal")
+
+    t0 = time.perf_counter()
+    chroms = tuple(f"chr{i + 1}" for i in range(GEMINI_CHROMS))
+    bam, genome = write_paired_workload(
+        os.path.join(work, "pairs4"), GEMINI_CHROM_LEN,
+        GEMINI_MULTI_FRAGMENTS, chrom_names=chroms, seed=SEED, index=True)
+    n_reads = 2 * GEMINI_MULTI_FRAGMENTS * GEMINI_CHROMS
+    log(f"J(b): paired workload, {GEMINI_CHROMS} x {GEMINI_CHROM_LEN:,} bp, "
+        f"{n_reads:,} reads, indexed, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    records, stats = {}, {}
+    for mode, arg in (("whole", "0"), ("region", str(GEMINI_REGION)),
+                      ("multi", str(GEMINI_WORKERS))):
+        out = os.path.join(work, f"g4_{mode}.bam")
+        log_path = os.path.join(work, f"g4_{mode}.log")
+        wall, rss = _child(_GEMINI_CHILD, [mode, bam, genome, out, arg],
+                           log_path)
+        with open(log_path) as f:
+            text = f.read().splitlines()
+        workers = int(next(ln for ln in text if ln.startswith(
+            "workers peak RSS KiB")).split()[-1]) * 1024
+        if "torch imported False" not in text:
+            raise AssertionError(f"J(b) {mode}: the Gemini process imported "
+                                 "torch")
+        stats[mode] = json.loads(next(ln for ln in text
+                                      if ln.startswith("stats "))[6:])
+        records[mode] = _gemini_records(out)
+        walls[mode] = wall
+        what = {"whole": "whole chromosomes",
+                "region": f"-RegionSize {GEMINI_REGION:,}",
+                "multi": f"run_gemini_multi, {GEMINI_WORKERS} workers"}[mode]
+        log(f"J(b): {what}: {wall:.2f} s in a child ({n_reads / wall:,.0f} "
+            f"reads/s), its peak RSS {rss / 2**30:.2f} GiB"
+            + (f", its workers' peak RSS {workers / 2**30:.2f} GiB"
+               if mode == "multi" else "")
+            + f"; {len(records[mode]):,} records out")
+        if mode == "multi" and workers > GEMINI_WORKER_RSS_MAX:
+            raise AssertionError(f"J(b): Gemini workers peaked at "
+                                 f"{workers / 2**30:.2f} GiB of host RSS")
+    if records["multi"] != records["whole"]:
+        raise AssertionError("J(b): run_gemini_multi differs from the whole "
+                             "run")
+    if stats["multi"] != stats["whole"]:
+        raise AssertionError("J(b): run_gemini_multi counted otherwise")
+    edges = np.arange(GEMINI_REGION, GEMINI_CHROM_LEN, GEMINI_REGION)
+    whole, region = Counter(records["whole"]), Counter(records["region"])
+    diff = list((whole - region) + (region - whole))
+    far = [r for r in diff
+           if np.abs(edges - r[1]).min() > GEMINI_EDGE_ZONE]
+    if far:
+        raise AssertionError(f"J(b): -RegionSize differs from the whole run "
+                             f"away from the block edges, e.g. {far[:2]}")
+    log(f"J(b): run_gemini_multi equals the whole run (records in order, "
+        f"tags included, and counters); -RegionSize: {len(diff):,} records "
+        f"differ from the whole run's (of {len(records['whole']):,} and "
+        f"{len(records['region']):,}), none farther than {GEMINI_EDGE_ZONE} "
+        "bp from a block edge, where a block finds its indel targets alone")
+
+
+def run_realign_corpus(work: str):
+    """Phase J(c): the realigner-engaged corpus, native against the Python
+    twin (BAM and .indels.csv byte-equal)."""
+    import filecmp
+    from pisces_tpu_torch.preprocessing.gemini import (
+        GeminiOptions, run_gemini,
+    )
+    from pisces_tpu_torch.synthetic import write_realign_corpus
+
+    bam, genome = write_realign_corpus(os.path.join(work, "corpus"))
+    n_reads = 8_000
+    outs, walls, stats = {}, {}, {}
+    for twin in (False, True):
+        _python_twin(twin)
+        stats[twin] = {}
+        try:
+            t0 = time.perf_counter()
+            outs[twin] = run_gemini(
+                bam, genome, os.path.join(work, f"corpus_{twin}.bam"),
+                GeminiOptions(use_bin_signal=False), stats=stats[twin])
+            walls[twin] = time.perf_counter() - t0
+        finally:
+            _python_twin(False)
+    for ext in ("", ".bai", ".indels.csv"):
+        if not filecmp.cmp(outs[False] + ext, outs[True] + ext,
+                           shallow=False):
+            raise AssertionError(f"J(c): native and Python twin outputs "
+                                 f"differ ({ext or '.bam'})")
+    n_xt = sum(b"Realigned" in r[2] for r in _gemini_records(outs[False]))
+    if n_xt == 0:
+        raise AssertionError("J(c): no read realigned")
+    log(f"J(c): realign corpus ({n_reads:,} reads, 10 recurrent indel "
+        f"sites): native {walls[False]:.2f} s ({n_reads / walls[False]:,.0f}"
+        f" reads/s), Python twin {walls[True]:.2f} s "
+        f"({n_reads / walls[True]:,.0f} reads/s); {n_xt} reads carry XT "
+        f"R?Realigned; outputs byte-equal; " + _gemini_summary(stats[False]))
+
+
+def run_scylla_arm(work: str, device):
+    """Phase J(d): the reference bench's MNV stage through Scylla."""
+    from pisces_tpu_torch.apps.accuracy import run_mnv_accuracy
+    t0 = time.perf_counter()
+    res = run_mnv_accuracy(os.path.join(work, "scylla"), mode="scylla",
+                           device=device)
+    wall = time.perf_counter() - t0
+    if (res.n_truth, res.recall, res.precision) != (40, 1.0, 1.0):
+        raise AssertionError(f"J(d): Scylla arm {res}; want recall = "
+                             "precision = 1.00 on 40 haplotypes")
+    log(f"J(d): MNV accuracy, Scylla arm (SNV calls on the card, phased by "
+        f"Scylla): {wall:.2f} s; recall {res.recall:.3f}, precision "
+        f"{res.precision:.3f} (tp={res.tp} fp={res.fp} fn={res.fn})")
+
+
+def run_gemini_paths(work: str, device):
+    """Phase J. Returns the caller runs' records and J(a)'s stitched
+    tuples' count."""
+    t0 = time.perf_counter()
+    runs, stitched = run_gemini_pipeline(work)
+    run_gemini_streams(work, os.path.join(work, "pairs", "b.bam"),
+                       os.path.join(work, "pairs", "genome"))
+    run_realign_corpus(work)
+    run_scylla_arm(work, device)
+    log(f"phase J: {time.perf_counter() - t0:.1f} s")
+    return runs, stitched
+
+
+# ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
 
@@ -1615,6 +1960,13 @@ def main_smoke() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # phase J: Gemini -> the caller -> Scylla
+    work = os.path.join(REPO, "build", "chip_smoke_gemini")
+    try:
+        gemini_runs, gemini_stitched = run_gemini_paths(work, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     # phase C: WGS streaming in child processes
     work = os.path.join(REPO, "build", "chip_smoke_wgs")
     try:
@@ -1677,6 +2029,8 @@ def main_smoke() -> int:
     log(f"EM at {EM_OBS:,} observations on the card: {em['em_ms']:.1f} ms")
     log(f"phase H(a): {stitched_tuples:,} tuples with non-zero stitched "
         "columns reached score_tuples")
+    log(f"phase J(a): {gemini_stitched:,} tuples of Gemini's stitched reads "
+        "with non-zero stitched columns reached score_tuples")
     for r in win_runs + sched_runs + ploidy_runs:
         if r.get("stages"):
             log(f"stages ({r['run']}): " + ", ".join(
@@ -1698,7 +2052,8 @@ def main_smoke() -> int:
             "main": launches["score_tuples"],
             **{r["run"]: r["launches"]
                for r in (win_runs + sched_runs + mh_runs + ploidy_runs
-                         + option_runs + tagged_runs + mnv_runs)
+                         + option_runs + tagged_runs + mnv_runs
+                         + gemini_runs)
                if "launches" in r}},
         "max_abs_err": err["score_tuples"],
         "ms": t["ms"],

@@ -15,11 +15,10 @@ reproduces both *measurements* on planted truth:
   exact genotype (0/1 for het, 1/1 for hom) on a PASS line.
 
 * ``run_mnv_accuracy`` — plant multi-site haplotypes (2-3 nearby SNVs
-  carried on the same reads), call directly with ``-CallMNVs``
-  (CandidateVariantFinder MNV build-up), and score phased-MNV
-  recall/precision by exact (chrom,pos,ref,alt) match. Its Scylla mode
-  (VariantPhaser.cs:44-157, PhasedVariantExtractor.cs:40-233) needs
-  ``phasing/`` and is not yet ported (ROADMAP Queue 1 item 11).
+  carried on the same reads), call either directly with ``-CallMNVs``
+  (CandidateVariantFinder MNV build-up) or via the Scylla phasing flow
+  (VariantPhaser.cs:44-157, PhasedVariantExtractor.cs:40-233), and score
+  phased-MNV recall/precision by exact (chrom,pos,ref,alt) match.
 """
 from __future__ import annotations
 
@@ -311,13 +310,10 @@ def run_mnv_accuracy(outdir: str,
 
     mode="mnv":    direct ``-CallMNVs true`` calling (MaxSizeMNV 100,
                    MaxGapBetweenMNV 10 — run_analysis.sh MNV classes).
-    mode="scylla": SNV calls phased by Scylla; needs phasing/, not yet
-                   ported (ROADMAP Queue 1 item 11).
+    mode="scylla": call SNVs (CallMNVs false), then phase with Scylla and
+                   score the ``.phased.vcf`` (the production 2-stage
+                   flow: Pisces → Scylla).
     `device` and `backend` as apps/pisces.process_bam takes them."""
-    if mode != "mnv":
-        raise NotImplementedError(
-            f"the {mode!r} arm of the MNV accuracy run needs phasing/ "
-            "(Scylla), not yet ported (ROADMAP Queue 1 item 11)")
     from pisces_tpu_torch.apps.pisces import process_bam
     from pisces_tpu_torch.io.fasta import Genome
     from pisces_tpu_torch.options import PiscesApplicationOptions
@@ -327,11 +323,21 @@ def run_mnv_accuracy(outdir: str,
     o = PiscesApplicationOptions()
     o.output_directory = outdir
     o.vcf_writing_parameters.output_gvcf_file = False
-    o.call_mnvs = True
-    o.max_size_mnv = 100
-    o.max_gap_between_mnv = 10
+    if mode == "mnv":
+        o.call_mnvs = True
+        o.max_size_mnv = 100
+        o.max_gap_between_mnv = 10
+    else:
+        o.call_mnvs = False
     o.validate()
     vcf = process_bam(o, bam, Genome(gdir), device=device, backend=backend)
+    if mode == "scylla":
+        from pisces_tpu_torch.phasing.scylla import main as scylla_main
+        rc = scylla_main(["-bam", bam, "-vcf", vcf, "-out", outdir,
+                          "-g", gdir])
+        assert rc == 0, f"scylla failed rc={rc}"
+        stem = os.path.splitext(os.path.basename(vcf))[0]
+        vcf = os.path.join(outdir, f"{stem}.phased.vcf")
     res = score_mnvs(vcf, truth)
     csv = os.path.join(outdir, f"mnv_summary_{mode}.csv")
     with open(csv, "w") as f:

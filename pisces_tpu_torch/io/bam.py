@@ -257,10 +257,12 @@ class BamReader:
         return out
 
     def fetch(self, ref_id: Optional[int] = None,
-              parse_tags: bool = False) -> ReadBatch:
+              parse_tags: bool = False,
+              parse_names: bool = False) -> ReadBatch:
         """Decode records (optionally only those mapped to ref_id) into a
         batch; parse_tags=True also decodes the tags pileup reads (XD, XN,
-        XR, XU, XV, XW) into xd_tags, xn_tags and extra_tags."""
+        XR, XU, XV, XW) into xd_tags, xn_tags and extra_tags, and
+        parse_names=True the read names."""
         offsets = self._scan_record_offsets()
         d = self._data
         n_total = len(offsets) - 1
@@ -285,10 +287,11 @@ class BamReader:
 
         idx = np.nonzero(keep)[0]
         return self._decode_selected(d, offsets[:-1], ref_ids, poss, mapqs,
-                                     flags, idx, parse_tags)
+                                     flags, idx, parse_tags, parse_names)
 
     def _decode_selected(self, d, offsets, ref_ids, poss, mapqs, flags,
-                         idx, parse_tags: bool = False) -> ReadBatch:
+                         idx, parse_tags: bool = False,
+                         parse_names: bool = False) -> ReadBatch:
         m = len(idx)
         cigar_off = np.zeros(m + 1, dtype=np.int64)
         seq_off = np.zeros(m + 1, dtype=np.int64)
@@ -302,6 +305,7 @@ class BamReader:
         xd_tags: Optional[list] = [] if parse_tags else None
         xn_tags: Optional[list] = [] if parse_tags else None
         extra_tags: Optional[list] = [] if parse_tags else None
+        names: Optional[list] = [] if parse_names else None
 
         for j, i in enumerate(idx):
             off = int(offsets[i])
@@ -309,6 +313,9 @@ class BamReader:
             n_cigar = struct.unpack_from("<H", d, off + 16)[0]
             l_seq = struct.unpack_from("<i", d, off + 20)[0]
             mate_ref_id[j], mate_pos[j] = struct.unpack_from("<ii", d, off + 24)
+            if parse_names:
+                names.append(d[off + 36:off + 36 + l_read_name - 1]
+                             .decode("ascii", errors="replace"))
             p = off + 36 + l_read_name
             cig = np.frombuffer(d, dtype=np.uint32, count=n_cigar, offset=p)
             ops = (cig & 0xF).astype(np.uint8)
@@ -355,18 +362,20 @@ class BamReader:
             xd_tags=xd_tags,
             xn_tags=xn_tags,
             extra_tags=extra_tags,
+            names=names,
             mate_ref_id=mate_ref_id,
             mate_pos=mate_pos,
         )
 
     def fetch_region(self, ref_id: int, beg0: int, end0: int,
-                     parse_tags: bool = False) -> ReadBatch:
+                     parse_tags: bool = False,
+                     parse_names: bool = False) -> ReadBatch:
         """Reads of ref_id overlapping [beg0, end0) (0-based half-open).
         A lazy reader inflates only the chunks its .bai maps to the query
         (IOError without one); a whole-file reader decodes the chromosome
-        and masks it. parse_tags as in fetch()."""
+        and masks it. parse_tags and parse_names as in fetch()."""
         if self._raw is None:
-            batch = self.fetch(ref_id, parse_tags)
+            batch = self.fetch(ref_id, parse_tags, parse_names)
             return subset_batch(batch,
                                 (batch.pos < end0) & (batch.end_pos >= beg0))
         idx = self.index()
@@ -433,7 +442,8 @@ class BamReader:
             np.asarray(ref_ids_l, dtype=np.int32),
             np.asarray(poss_l, dtype=np.int32),
             np.asarray(mapqs_l, dtype=np.uint8),
-            np.asarray(flags_l, dtype=np.uint16), np.arange(m), parse_tags)
+            np.asarray(flags_l, dtype=np.uint16), np.arange(m), parse_tags,
+            parse_names)
         return subset_batch(batch, batch.end_pos >= beg0)
 
 
@@ -467,6 +477,47 @@ def subset_batch(batch: ReadBatch, mask: np.ndarray) -> ReadBatch:
         mate_ref_id=(None if batch.mate_ref_id is None
                      else batch.mate_ref_id[idx]),
         mate_pos=None if batch.mate_pos is None else batch.mate_pos[idx],
+    )
+
+
+def concat_batches(a: ReadBatch, b: ReadBatch) -> ReadBatch:
+    """Concatenate two batches (Gemini's -RegionSize EdgeState carry into
+    the next block)."""
+    if a.n == 0:
+        return b
+    if b.n == 0:
+        return a
+
+    def cat_opt_list(x, y):
+        if x is None and y is None:
+            return None
+        return (x or []) + (y or [])
+
+    def cat_opt_arr(x, y):
+        if x is None or y is None:
+            return None
+        return np.concatenate([x, y])
+
+    return ReadBatch(
+        n=a.n + b.n,
+        ref_id=np.concatenate([a.ref_id, b.ref_id]),
+        pos=np.concatenate([a.pos, b.pos]),
+        mapq=np.concatenate([a.mapq, b.mapq]),
+        flag=np.concatenate([a.flag, b.flag]),
+        cigar_off=np.concatenate([a.cigar_off,
+                                  b.cigar_off[1:] + a.cigar_off[-1]]),
+        cigar_ops=np.concatenate([a.cigar_ops, b.cigar_ops]),
+        cigar_lens=np.concatenate([a.cigar_lens, b.cigar_lens]),
+        seq_off=np.concatenate([a.seq_off, b.seq_off[1:] + a.seq_off[-1]]),
+        seq=np.concatenate([a.seq, b.seq]),
+        qual=np.concatenate([a.qual, b.qual]),
+        end_pos=np.concatenate([a.end_pos, b.end_pos]),
+        xd_tags=cat_opt_list(a.xd_tags, b.xd_tags),
+        xn_tags=cat_opt_list(a.xn_tags, b.xn_tags),
+        extra_tags=cat_opt_list(a.extra_tags, b.extra_tags),
+        names=cat_opt_list(a.names, b.names),
+        mate_ref_id=cat_opt_arr(a.mate_ref_id, b.mate_ref_id),
+        mate_pos=cat_opt_arr(a.mate_pos, b.mate_pos),
     )
 
 

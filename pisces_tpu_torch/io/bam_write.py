@@ -1,9 +1,11 @@
 """BAM writing (BamWriter / BamWriterInMem equivalents).
 
 Reference: src/lib/Alignment.IO/BamWriter.cs:1-366, BamWriterInMem.cs
-(in-memory sort then write). Emits coordinate-sorted BAM through the
-plain-zlib BGZF writer, and optionally its .bai; the synthetic workloads
-(pisces_tpu_torch.synthetic) write their inputs with it.
+(in-memory sort then write). Emits coordinate-sorted BAM, deflated by
+the native module's BGZF thread pool, and optionally its .bai; the
+synthetic workloads (pisces_tpu_torch.synthetic) and Gemini
+(preprocessing/gemini.py) write with it, and cat_bams merges Gemini's
+per-chromosome shards.
 """
 from __future__ import annotations
 
@@ -12,7 +14,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pisces_tpu_torch.io import bgzf
 from pisces_tpu_torch.io.bai import BaiBuilder, reg2bin, write_bai
 
 # char -> 4-bit nibble code in '=ACMGRSVTWYHKDBN'
@@ -115,6 +116,22 @@ class BamWriter:
     def add(self, record: BamRecord) -> None:
         self.records.append(record)
 
+    def add_read(self, name: str, chrom: str, pos1: int, cigar: str, seq: str,
+                 qual=30, flag: int = 0, mapq: int = 60,
+                 tags: Optional[Dict[str, object]] = None,
+                 mate_pos0: int = -1, mate_chrom: Optional[str] = None) -> None:
+        """One read from text fields: 1-based pos1, a CIGAR string and a
+        single quality for every base or one per base."""
+        if isinstance(qual, int):
+            qual = [qual] * len(seq)
+        rid = self.ref_names.index(chrom)
+        mate_rid = (self.ref_names.index(mate_chrom) if mate_chrom
+                    else (rid if mate_pos0 >= 0 else -1))
+        self.add(BamRecord(name, rid, pos1 - 1, mapq,
+                           flag, parse_cigar_string(cigar), seq, qual,
+                           next_ref_id=mate_rid, next_pos=mate_pos0,
+                           tags=tags))
+
     def header_bytes(self) -> bytes:
         text = "@HD\tVN:1.6\tSO:coordinate\n"
         for name, length in zip(self.ref_names, self.ref_lengths):
@@ -130,22 +147,81 @@ class BamWriter:
 
     def write(self, sort: bool = True, index: bool = False) -> str:
         """Write the BAM (coordinate-sorted by default). With index=True a
-        sibling .bai is built from the records' virtual offsets while
-        writing (the reference's BamWriter + BamIndex.CreateIndexFromBamFile
-        analog); the BAM bytes are the same either way."""
+        sibling .bai is built from the records' virtual offsets (the
+        reference's BamWriter + BamIndex.CreateIndexFromBamFile analog).
+
+        The uncompressed stream is deflated across the native thread pool
+        (the reference's BamWriterMultithreaded), in the fixed 0xFF00-byte
+        chunks that io/bgzf.BgzfWriter cuts, so the bytes are the streaming
+        writer's; each record's virtual offset follows from the chunking."""
+        from pisces_tpu_torch.io.native import bgzf_compress_parallel
         if sort:
             self.records.sort(key=lambda r: (r.ref_id, r.pos0))
-        builder = BaiBuilder(len(self.ref_names)) if index else None
+        parts = [self.header_bytes()]
+        upos = [len(parts[0])]
+        for r in self.records:
+            enc = r.encode()
+            parts.append(enc)
+            upos.append(upos[-1] + len(enc))
+        out, block_off = bgzf_compress_parallel(b"".join(parts))
         with open(self.path, "wb") as f:
-            w = bgzf.BgzfWriter(f)
-            w.write(self.header_bytes())
-            for r in self.records:
-                v0 = w.tell_virtual()
-                w.write(r.encode())
-                if builder is not None:
-                    builder.add(r.ref_id, r.pos0, r.ref_end0(), v0,
-                                w.tell_virtual(), mapped=not (r.flag & 0x4))
-            w.close()
-        if builder is not None:
+            f.write(out)
+        if index:
+            builder = BaiBuilder(len(self.ref_names))
+            for i, r in enumerate(self.records):
+                builder.add(r.ref_id, r.pos0, r.ref_end0(),
+                            _voff(block_off, upos[i]),
+                            _voff(block_off, upos[i + 1]),
+                            mapped=not (r.flag & 0x4))
             write_bai(builder.build(), self.path + ".bai")
         return self.path
+
+
+def _voff(block_off: np.ndarray, u: int) -> int:
+    """Virtual offset of uncompressed stream offset u in a BGZF file cut
+    into 0xFF00-byte chunks whose file offsets are block_off."""
+    b, within = divmod(u, 0xFF00)
+    return (int(block_off[b]) << 16) | within
+
+
+def cat_bams(shard_paths: Sequence[str], out_path: str,
+             ref_names: Sequence[str], ref_lengths: Sequence[int],
+             extra_header_text: str = "", index: bool = True) -> str:
+    """samtools-cat analog (GeminiWorkflow.cs:62-101 merge step, done
+    natively): concatenate per-chromosome sorted BAM shards at the
+    record-byte level (records are never re-encoded), recompress the
+    stream with the parallel BGZF deflater, and rebuild the .bai from the
+    shard readers' columnar fields and the chunking's virtual offsets.
+    Shards must share the output's reference dictionary and be
+    coordinate-sorted, in genome order across the list."""
+    from pisces_tpu_torch.io.bam import BamReader
+    from pisces_tpu_torch.io.native import bgzf_compress_parallel
+
+    w = BamWriter(out_path, ref_names, ref_lengths,
+                  extra_header_text=extra_header_text)
+    header = w.header_bytes()
+    parts = [header]
+    per_shard = []  # (batch, record_ustart[int64]) in output stream coords
+    upos = len(header)
+    for p in shard_paths:
+        r = BamReader(p)
+        offs = r._scan_record_offsets()
+        stream = r._data[r._records_start:]
+        parts.append(stream)
+        batch = r.fetch()
+        per_shard.append((batch, offs - r._records_start + upos))
+        upos += len(stream)
+    out, block_off = bgzf_compress_parallel(b"".join(parts))
+    with open(out_path, "wb") as f:
+        f.write(out)
+    if index:
+        builder = BaiBuilder(len(ref_names))
+        for batch, ustarts in per_shard:
+            for i in range(batch.n):
+                builder.add(int(batch.ref_id[i]), int(batch.pos[i]),
+                            int(batch.end_pos[i]) + 1,
+                            _voff(block_off, int(ustarts[i])),
+                            _voff(block_off, int(ustarts[i + 1])),
+                            mapped=not (int(batch.flag[i]) & 0x4))
+        write_bai(builder.build(), out_path + ".bai")
+    return out_path

@@ -3,8 +3,10 @@
 The sources are io/_native/*.cpp: pisces_io.cpp (BGZF inflate, columnar BAM
 decode with typed tags, the lazy .bai region fetch, the pileup pass with SNV
 mismatch extraction and the gVCF tuple dedup, reference-line rendering, the
-threaded BGZF deflater) and rmxn.cpp (the RMxN repeat scan). get_lib()
-builds them with g++ at first use into
+threaded BGZF deflater), rmxn.cpp (the RMxN repeat scan), stitch.cpp
+(Gemini's read-pair stitcher, one pair or a columnar batch, and the
+realigner's alignment summary) and realign.cpp (the realigner's per-read
+core). get_lib() builds them with g++ at first use into
 pisces_tpu_torch/build/libpisces_io-<hash>.so, named by a hash of the
 sources, the flags and the host CPU, so a stale or foreign build never
 loads. A failed build raises with the compiler's output: open_bam never
@@ -185,6 +187,10 @@ def _bind(lib) -> None:
         fn.restype = ctypes.POINTER(ct)
         fn.argtypes = [ctypes.c_void_p]
     lib.bam_col_tag_off.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_col_name_off.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.bam_col_name_off.argtypes = [ctypes.c_void_p]
+    lib.bam_col_name_blob.restype = ctypes.c_void_p
+    lib.bam_col_name_blob.argtypes = [ctypes.c_void_p]
     lib.bam_col_tag_blob.restype = ctypes.c_void_p
     lib.bam_col_tag_blob.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.bam_total_cigar.restype = ctypes.c_int64
@@ -261,6 +267,33 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
         ctypes.c_int, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int]
+    vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # preprocessing/stitcher.py
+    lib.stitch_pair.restype = ci
+    lib.stitch_pair.argtypes = [
+        i64, vp, vp, ci, vp, vp, ci,
+        i64, vp, vp, ci, vp, vp, ci,
+        ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci]
+    lib.stitch_pairs_batch.restype = ci
+    lib.stitch_pairs_batch.argtypes = (
+        [i64, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci]
+        + [ci] * 9
+        + [vp, vp, vp, vp, vp, i64, vp, vp, vp, i64, vp, vp, i64, vp])
+    # preprocessing/realigner.py
+    lib.aln_summary.restype = ci
+    lib.aln_summary.argtypes = [
+        ctypes.c_char_p, i64, i64, vp, vp, ci, ctypes.c_char_p, ci, vp]
+    lib.realign_anchor.restype = ci
+    lib.realign_anchor.argtypes = (
+        [vp, i64,                  # ref
+         i64, i64, i64, i64, i64,  # details
+         vp, vp, i64,              # seq/quals/len
+         i64] + [vp] * 6           # indel scalar arrays
+        + [vp] + [vp] * 4          # pool + 4 offset arrays
+        + [ci, ci]                 # anchor_left, pair_specific
+        + [ci] * 5 + [i64, ctypes.c_double, i64]  # config
+        + [vp] * 8 + [ci])         # outputs
     lib._bound = True
 
 
@@ -337,21 +370,23 @@ class NativeBamReader:
         return self._bai or None
 
     def fetch(self, ref_id: Optional[int] = None, parse_tags: bool = False,
-              as_views: bool = False):
+              as_views: bool = False, parse_names: bool = False):
         """Decode the records of ref_id (None: all). as_views=True serves
         the base-sized columns (seq/qual/cigar) as zero-copy views into the
         handle's decode buffers, valid until the next fetch on this handle
         (native_pileup does not invalidate them); the single-pass caller
-        path opts in, every other caller gets copies."""
+        path opts in, every other caller gets copies. parse_names=True
+        also decodes the read names (Gemini pairs mates by name)."""
         if self._lazy:
             raise ValueError(f"{self.path}: a lazy reader serves "
                              "fetch_region() only")
         n = int(self._lib.bam_decode_tags(
             self._h, -1 if ref_id is None else ref_id,
             1 if parse_tags else 0))
-        return self._batch(n, parse_tags, as_views)
+        return self._batch(n, parse_tags, as_views, parse_names)
 
-    def _batch(self, n: int, parse_tags: bool, as_views: bool):
+    def _batch(self, n: int, parse_tags: bool, as_views: bool,
+               parse_names: bool = False):
         """The ReadBatch of the handle's n decoded records."""
         from pisces_tpu_torch.io.bam import ReadBatch
         lib = self._lib
@@ -363,6 +398,13 @@ class NativeBamReader:
         xd_tags = xn_tags = extra_tags = None
         if parse_tags:
             xd_tags, xn_tags, extra_tags = self._build_tag_lists(n)
+        names = None
+        if parse_names:
+            name_off = _as_array(lib.bam_col_name_off(h), n + 1, np.int64)
+            blob = ctypes.string_at(lib.bam_col_name_blob(h),
+                                    int(name_off[-1])) if n else b""
+            names = [blob[name_off[i]:name_off[i + 1]].decode(
+                "ascii", errors="replace") for i in range(n)]
         batch = ReadBatch(
             n=n,
             ref_id=_as_array(lib.bam_col_ref_id(h), n, np.int32),
@@ -379,6 +421,7 @@ class NativeBamReader:
             xd_tags=xd_tags,
             xn_tags=xn_tags,
             extra_tags=extra_tags,
+            names=names,
             mate_ref_id=_as_array(lib.bam_col_mate_ref_id(h), n, np.int32),
             mate_pos=_as_array(lib.bam_col_mate_pos(h), n, np.int32),
         )
@@ -433,7 +476,8 @@ class NativeBamReader:
         return xd_tags, xn_tags, extra
 
     def fetch_region(self, ref_id: int, beg0: int, end0: int,
-                     parse_tags: bool = False, as_views: bool = False):
+                     parse_tags: bool = False, as_views: bool = False,
+                     parse_names: bool = False):
         """Reads of ref_id overlapping [beg0, end0) (0-based half-open).
 
         A lazy reader queries the .bai (IOError without one) and inflates
@@ -444,7 +488,7 @@ class NativeBamReader:
         native pileup does not take)."""
         if not self._lazy:
             from pisces_tpu_torch.io.bam import subset_batch
-            batch = self.fetch(ref_id, parse_tags)
+            batch = self.fetch(ref_id, parse_tags, parse_names=parse_names)
             mask = (batch.pos < end0) & (batch.end_pos >= beg0)
             return subset_batch(batch, mask)
         index = self.index()
@@ -463,7 +507,7 @@ class NativeBamReader:
         if n < 0:
             raise IOError(f"{self.path}: native region fetch failed")
         n = int(lib.bam_decode_tags(self._h, ref_id, 1 if parse_tags else 0))
-        return self._batch(n, parse_tags, as_views)
+        return self._batch(n, parse_tags, as_views, parse_names)
 
     def close(self):
         if self._h:

@@ -17,6 +17,13 @@ the format its reader module parses:
   - write_collapsed_workload: UMI read-collapsed reads with integer XV/XW
     counts (duplex when both are non-zero) and an optional XR pair
     direction (pileup/collapsed.py) under a collapsing @PG header line.
+
+Gemini's inputs (preprocessing/gemini.py):
+  - write_paired_workload: unstitched proper pairs on one or more
+    chromosomes, with recurrent 2 bp indels that some mates carry under a
+    clean M CIGAR;
+  - write_realign_corpus: single-end reads over recurrent indel sites, the
+    realigner's heavy case.
 """
 from __future__ import annotations
 
@@ -599,6 +606,164 @@ def write_collapsed_workload(tmp: str, chrom_len: int, n_reads: int,
             q_dip if dip[i] else q30, next_ref_id=0, next_pos=mate - 1,
             tags=tags))
     w.write(index=index)
+    return w.path, os.path.join(tmp, "genome")
+
+
+def _mate_alignment(p: int, h: int, kind: str, a: int, read_len: int,
+                    clean_m: bool):
+    """(1-based position, CIGAR string) of the read at offset a of a
+    fragment haplotype that starts at reference position p and carries a
+    2 bp event after its first h bases ("ins": two inserted bases at
+    haplotype offsets h, h+1; "del": reference bases p+h, p+h+1 removed).
+    A read that spans the event is written as a clean M run from its own
+    start when clean_m is set (misaligned, as an aligner may leave it)."""
+    if a + read_len <= h:
+        return p + a, f"{read_len}M"
+    if kind == "del":
+        if a >= h:
+            return p + a + 2, f"{read_len}M"
+        if clean_m:
+            return p + a, f"{read_len}M"
+        left = h - a
+        return p + a, f"{left}M2D{read_len - left}M"
+    if a >= h + 2:
+        return p + a - 2, f"{read_len}M"
+    left = max(0, h - a)
+    ins = min(a + read_len, h + 2) - max(a, h)
+    right = read_len - left - ins
+    if clean_m:
+        return (p + a, f"{read_len}M") if left else (p + h - ins,
+                                                     f"{read_len}M")
+    if left == 0:
+        return p + h, f"{ins}S{right}M"
+    if right == 0:
+        return p + a, f"{left}M{ins}S"
+    return p + a, f"{left}M{ins}I{right}M"
+
+
+def write_paired_workload(tmp: str, chrom_len: int, n_fragments: int,
+                          read_len: int = 100, chrom_names=("chr1",),
+                          indel_fraction: float = 0.01, seed: int = 0,
+                          index: bool = False):
+    """Unstitched read pairs, the input of Gemini (preprocessing/gemini.py):
+    n_fragments proper pairs on each chromosome of chrom_names, with no
+    Stitcher @PG header line. Mates overlap by -40 (a 40 bp gap) to
+    read_len - 10 bases. indel_fraction of the fragments carry one of the
+    chromosome's recurrent 2 bp indel sites (one per 5 kb, insertions and
+    deletions in turn), and half of those carriers are written with a
+    clean M CIGAR over the event (the realigner's work); 30% of fragments
+    carry the planted SNVs (one per 500 bp) they cover; 15% of second
+    mates end in a Q12 10bp tail. Returns (bam path, genome dir)."""
+    from pisces_tpu_torch.io.bam_write import (
+        BamRecord, BamWriter, parse_cigar_string,
+    )
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(tmp, ignore_errors=True)
+    chroms = list(chrom_names)
+    seqs = {c: _BASES[rng.integers(0, 4, chrom_len)] for c in chroms}
+    _write_genome(os.path.join(tmp, "genome"), seqs)
+    w = BamWriter(os.path.join(tmp, "b.bam"), chroms,
+                  [chrom_len] * len(chroms))
+    margin = 2 * read_len + 50
+    for rid, c in enumerate(chroms):
+        seq = seqs[c]
+        sites, alts = _sites(rng, chrom_len, margin,
+                             max(8, chrom_len // 500), seq)
+        n_ind = max(2, chrom_len // 5000)
+        ind_sites = np.sort(rng.choice(
+            np.arange(margin, chrom_len - margin), n_ind, replace=False))
+        ins_bases = bytes(_BASES[rng.integers(0, 4, 2 * n_ind)])
+        overlaps = rng.integers(-40, read_len - 10, n_fragments)
+        starts = rng.integers(1, chrom_len - 2 * read_len - 50, n_fragments)
+        indel = rng.random(n_fragments) < indel_fraction
+        which = rng.integers(0, n_ind, n_fragments)
+        at = rng.integers(15, read_len - 15, n_fragments)
+        clean = rng.random(n_fragments) < 0.5
+        rev_first = rng.random(n_fragments) < 0.5
+        carrier = rng.random(n_fragments) < 0.3
+        low_tail = rng.random(n_fragments) < 0.15
+        for i in range(n_fragments):
+            frag = 2 * read_len - int(overlaps[i])
+            p, h, kind = int(starts[i]), frag + 10, "none"
+            if indel[i]:
+                k = int(which[i])
+                h = int(at[i])
+                p = int(ind_sites[k]) - h + 1
+                kind = "ins" if k % 2 == 0 else "del"
+            ref = bytearray(seq[p - 1:p - 1 + frag + 2].tobytes())
+            if carrier[i]:
+                _carry_snvs(ref, p, sites, alts)
+            if kind == "ins":
+                hap = ref[:h] + ins_bases[2 * k:2 * k + 2] + ref[h:]
+            elif kind == "del":
+                hap = ref[:h] + ref[h + 2:]
+            else:
+                hap = ref
+            name = f"p{rid}_{i}"
+            mates = []
+            for a, first in ((0, True), (frag - read_len, False)):
+                pos, cig = _mate_alignment(p, h, kind, a, read_len,
+                                           bool(clean[i]))
+                mates.append((pos, cig, hap[a:a + read_len], first))
+            for j, (pos, cig, rseq, first) in enumerate(mates):
+                mate_pos = mates[1 - j][0]
+                reverse = rev_first[i] == first
+                flag = 0x1 | 0x2 | (0x40 if first else 0x80) | \
+                    (0x10 if reverse else 0) | (0 if reverse else 0x20)
+                q = [30] * read_len
+                if low_tail[i] and not first:
+                    q[-10:] = [12] * 10
+                w.records.append(BamRecord(
+                    name, rid, pos - 1, 60, flag, parse_cigar_string(cig),
+                    rseq.decode(), q, next_ref_id=rid,
+                    next_pos=mate_pos - 1))
+    w.write(index=index)
+    return w.path, os.path.join(tmp, "genome")
+
+
+def write_realign_corpus(tmp: str, chrom_len: int = 15_000,
+                         read_len: int = 80, n_reads: int = 8_000,
+                         n_sites: int = 10, seed: int = 21):
+    """Single-end reads over recurrent 2 bp indel sites, the corpus on
+    which Gemini's realigner does most of its work (the reference
+    package's bench arm "gemini realigner-engaged corpus"): sites every
+    1,200 bp from 2 kb, insertions and deletions in turn; a read over a
+    site (10 bases in from either end) carries its event with probability
+    0.4, and half of those carriers are written with a clean M CIGAR.
+    Odd reads are reverse-strand. Returns (bam path, genome dir)."""
+    from pisces_tpu_torch.io.bam_write import BamWriter
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(tmp, ignore_errors=True)
+    refs = _BASES[rng.integers(0, 4, chrom_len)].tobytes().decode()
+    _write_genome(os.path.join(tmp, "genome"),
+                  {"chrR": np.frombuffer(refs.encode(), np.uint8)})
+    sites = [(2000 + k * 1200, k % 2 == 0) for k in range(n_sites)]
+    ins_of = {sp: bytes(_BASES[rng.integers(0, 4, 2)]).decode()
+              for sp, is_ins in sites if is_ins}
+    starts = rng.integers(1, chrom_len - read_len - 4, n_reads)
+    w = BamWriter(os.path.join(tmp, "r.bam"), ["chrR"], [chrom_len])
+    for i in range(n_reads):
+        p = int(starts[i])
+        sq = refs[p - 1:p - 1 + read_len]
+        cg = f"{read_len}M"
+        for sp, is_ins in sites:
+            off = sp - p
+            if 10 <= off < read_len - 12 and rng.random() < 0.4:
+                if is_ins:
+                    sq = (sq[:off + 1] + ins_of[sp] + sq[off + 1:])[:read_len]
+                    if rng.random() < 0.5:
+                        cg = f"{off + 1}M2I{read_len - off - 3}M"
+                else:
+                    sq = (sq[:off + 1] + sq[off + 3:]
+                          + refs[p - 1 + read_len:p - 1 + read_len + 2]
+                          )[:read_len]
+                    if rng.random() < 0.5:
+                        cg = f"{off + 1}M2D{read_len - off - 1}M"
+                break
+        w.add_read(f"r{i}", "chrR", p, cg, sq, flag=0x10 if i & 1 else 0)
+    w.write()
     return w.path, os.path.join(tmp, "genome")
 
 

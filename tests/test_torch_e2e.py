@@ -375,7 +375,12 @@ def test_port_import_leaves_jax_unloaded():
             "pisces_tpu_torch.pileup.amplicons, "
             "pisces_tpu_torch.ops.amplicon_bias, "
             "pisces_tpu_torch.ops.exact_coverage, "
-            "pisces_tpu_torch.io.bias_writers; "
+            "pisces_tpu_torch.io.bias_writers, "
+            "pisces_tpu_torch.preprocessing.gemini, "
+            "pisces_tpu_torch.preprocessing.bins, "
+            "pisces_tpu_torch.preprocessing.classify, "
+            "pisces_tpu_torch.io.pair_filter, "
+            "pisces_tpu_torch.phasing.scylla; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pisces_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -205,12 +205,3 @@ def test_mnv_accuracy_arm_matches_jax(tmp_path):
             return [ln for ln in f if not ln.startswith("#")]
 
     assert body("t") == body("j")
-
-
-def test_scylla_arm_raises_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=r"phasing/.*ROADMAP Queue 1 item 11"):
-        torch_accuracy.run_mnv_accuracy(str(tmp_path), mode="scylla",
-                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        torch_accuracy.main(["scylla", "-o", str(tmp_path), "-device", "cpu"])

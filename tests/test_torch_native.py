@@ -416,8 +416,11 @@ def test_library_builds_from_the_port_sources():
     assert os.path.basename(lib.path).startswith("libpisces_io-")
     assert lib.path == native.library_path()
     srcs = native._sources()
-    assert [os.path.basename(s) for s in srcs] == ["pisces_io.cpp",
-                                                   "rmxn.cpp"]
+    assert [os.path.basename(s) for s in srcs] == [
+        "pisces_io.cpp", "realign.cpp", "rmxn.cpp", "stitch.cpp"]
+    # one RMxN scan in the library: stitch.cpp leaves it to rmxn.cpp
+    for name in ("rmxn_for_indel", "rmxn_min_component"):
+        assert sum(name in open(s).read() for s in srcs) == 1, name
     assert all(os.path.dirname(s) == os.path.join(
         REPO, "pisces_tpu_torch", "io", "_native") for s in srcs)
 
