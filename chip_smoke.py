@@ -124,8 +124,25 @@ its result lines:
      bench's realigner-engaged corpus, native against the twin, byte-equal;
      (d) apps/accuracy.run_mnv_accuracy's Scylla arm on the card, recall =
      precision = 1.00;
-     Phase E runs right after phase A, on its workload, then phase G; phase
-     D right after phase B, then phases H, I and J; phase F runs last;
+  K. the satellite tools on the card's output — (a) phase 3's torch and
+     numpy gVCFs clipped by Psara to their first 50 kb (a BED), each
+     clipped gVCF through VQR (basic and edge checks) and Reformat
+     (crush): the .counts and .edgecounts byte-equal, the lines VQR
+     rewrote equal, the .recal and crushed bodies agreeing as phase 3's
+     do (reference-line SB within the phase-2 tolerance); VennVcf torch
+     against numpy: no one-sided call, every variant in both 'and' files,
+     a consensus written; CreateGenomeSizeFile on phase 3's FASTA: the
+     XML and .fai equal to the workload writer's (each FASTA's md5 in
+     place of its placeholder); (b) apps/titration.run_titration with
+     recalibrate=True (VQR before scoring) on the card at the reference
+     bench's titration settings (25 sites a VF point at 800x), -backend
+     torch and numpy: summary CSVs and .recal bodies equal, R and P per
+     VF point logged with no threshold (VQR on a panel this small flags
+     ordinary categories); each tool's wall and the kernels' launches in
+     each arm (none: (a) reads files, (b) writes no gVCF) are recorded;
+     Phase E runs right after phase A, on its workload, then phases G and
+     K; phase D right after phase B, then phases H, I and J; phase F runs
+     last;
   6. timing — each kernel on the main path's tuples, 200,000 random tuples
      and each mesh's first tile: the wrapper's time (CUDA events over 50
      back-to-back calls), the kernel's device-only time (torch.profiler's
@@ -238,6 +255,13 @@ GEMINI_EDGE_ZONE = 250
 # a spawned child that opens CUDA holds about 4.64 GiB of host RSS (PERF.md
 # section 5); Gemini's host-only workers must stay far below it
 GEMINI_WORKER_RSS_MAX = 2 << 30
+# phase K: the satellites on phase 3's gVCFs clipped by Psara to their
+# first 50 kb (about 50,000 lines: the tools are host Python a line), and
+# the titration VQR arm at the reference bench's titration settings
+# (bench.py:875-879; 25 sites a VF point, 800x over 60 kb, 480,000 reads)
+SAT_ROI_BP = 50_000
+TITRATION_SITES = 25
+TITRATION_DEPTH = 800
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): f32 outside the tensor cores, and HBM3 bandwidth
@@ -1806,6 +1830,196 @@ def run_gemini_paths(work: str, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase K: the satellite tools on the card's output
+# ---------------------------------------------------------------------------
+
+def _timed(fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return time.perf_counter() - t0, out
+
+
+def _changed_lines(before: str, after: str):
+    """The lines of `after`'s body that differ from `before`'s, which must
+    have as many lines."""
+    from pisces_tpu_torch.entry import vcf_body
+    a, b = vcf_body(before), vcf_body(after)
+    if len(a) != len(b):
+        raise AssertionError(f"{after} has {len(b)} lines, {before} "
+                             f"{len(a)}")
+    return [y for x, y in zip(a, b) if x != y]
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def run_satellite_tools(work: str):
+    """Phase K(a): Psara, VQR, Reformat and VennVcf on phase 3's torch and
+    numpy gVCFs, then CreateGenomeSizeFile on its genome folder. Returns
+    each tool's wall (both arms)."""
+    import hashlib
+    from pisces_tpu_torch.apps import create_genome_size
+    from pisces_tpu_torch.entry import compare_vcf_files, vcf_body
+    from pisces_tpu_torch.satellites import psara, reformat, vennvcf, vqr
+
+    sat = os.path.join(work, "satellites")
+    bed = os.path.join(sat, "first.bed")
+    os.makedirs(sat)
+    with open(bed, "w") as f:
+        f.write(f"chr1\t0\t{SAT_ROI_BP}\n")
+    walls = {"psara": 0.0, "vqr": 0.0, "reformat": 0.0}
+    clipped, recal, crushed, counts = {}, {}, {}, {}
+    for arm, run in (("torch", "gpu"), ("numpy", "host")):
+        d = os.path.join(sat, arm)
+        os.makedirs(d)
+        clipped[arm] = os.path.join(d, "b.genome.vcf")
+        wall, _ = _timed(psara.filter_vcf,
+                         os.path.join(work, run, "b.genome.vcf"),
+                         clipped[arm], bed, "start")
+        walls["psara"] += wall
+        body = vcf_body(clipped[arm])
+        last = int(body[-1].split("\t")[1]) if body else 0
+        if len(body) < SAT_ROI_BP * 9 // 10 or last > SAT_ROI_BP:
+            raise AssertionError(f"K(a): Psara kept {len(body):,} lines up to "
+                                 f"{last:,} of the first {SAT_ROI_BP:,} bp")
+        wall, recal[arm] = _timed(vqr.recalibrate_vcf, clipped[arm],
+                                  os.path.join(d, "vqr"), do_edge=True)
+        walls["vqr"] += wall
+        counts[arm] = [_read_bytes(os.path.join(d, "vqr", "b.genome" + ext))
+                       for ext in (".counts", ".edgecounts")]
+        wall, crushed[arm] = _timed(reformat.reformat, clipped[arm],
+                                    os.path.join(d, "b.crushed.vcf"), True)
+        walls["reformat"] += wall
+    if counts["torch"] != counts["numpy"]:
+        raise AssertionError("K(a): VQR's .counts/.edgecounts differ between "
+                             "the torch and numpy gVCFs")
+    rewritten = {arm: _changed_lines(clipped[arm], recal[arm])
+                 for arm in clipped}
+    if rewritten["torch"] != rewritten["numpy"]:
+        raise AssertionError("K(a): VQR rewrote other lines in the torch "
+                             "gVCF than in the numpy gVCF")
+    n_recal = compare_vcf_files(recal["torch"], recal["numpy"])
+    n_crushed = compare_vcf_files(crushed["torch"], crushed["numpy"])
+    n_var = sum(1 for ln in vcf_body(clipped["torch"])
+                if ln.split("\t")[4] != ".")
+    log(f"K(a): Psara kept {len(body):,} lines of the first {SAT_ROI_BP:,} "
+        f"bp ({n_var} variant lines) in {walls['psara']:.2f} s (both arms); "
+        f"VQR (basic and edge checks) {walls['vqr']:.2f} s, .counts and "
+        f".edgecounts byte-equal, {len(rewritten['torch'])} line(s) "
+        f"rewritten and equal, {n_recal:,} .recal lines agree; Reformat "
+        f"(crush) {walls['reformat']:.2f} s, {n_crushed:,} lines agree")
+
+    wall, paths = _timed(vennvcf.do_pairwise_venn, clipped["torch"],
+                         clipped["numpy"], os.path.join(sat, "venn"),
+                         consensus=True)
+    walls["vennvcf"] = wall
+    sizes = {k: len(vcf_body(p)) for k, p in paths.items()}
+    if sizes["a_only"] or sizes["b_only"]:
+        raise AssertionError(f"K(a): VennVcf found one-sided calls between "
+                             f"the torch and numpy gVCFs: {sizes}")
+    if sizes["both"] != n_var or sizes["b_and"] != n_var:
+        raise AssertionError(f"K(a): {n_var} variant lines, but VennVcf's "
+                             f"'and' files hold {sizes['both']} and "
+                             f"{sizes['b_and']}")
+    if sizes["consensus"] < len(body) * 9 // 10:
+        raise AssertionError(f"K(a): VennVcf's consensus has "
+                             f"{sizes['consensus']:,} lines for "
+                             f"{len(body):,} loci")
+    log(f"K(a): VennVcf torch vs numpy {wall:.2f} s: no one-sided call, "
+        f"{sizes['both']} variants in 'and', {sizes['consensus']:,} "
+        "consensus lines")
+
+    # the workload writer puts md5="x" where the tool puts each FASTA's md5
+    genome = os.path.join(work, "genome")
+    gdir = os.path.join(sat, "genome")
+    os.makedirs(gdir)
+    want = open(os.path.join(genome, "GenomeSize.xml")).read().split("\n")
+    name = want[0].split('genomeName="', 1)[1].split('"', 1)[0]
+    for fa in sorted(os.listdir(genome)):
+        if fa.endswith(".fa"):
+            shutil.copy(os.path.join(genome, fa), gdir)
+            md5 = hashlib.md5(_read_bytes(os.path.join(gdir, fa))).hexdigest()
+            want = [ln.replace(' md5="x"', f' md5="{md5}"')
+                    if f'fileName="{fa}"' in ln else ln for ln in want]
+    wall, rc = _timed(create_genome_size.main, [gdir, name])
+    walls["create_genome_size"] = wall
+    if rc != 0 or open(os.path.join(gdir, "GenomeSize.xml")).read() != \
+            "\n".join(want):
+        raise AssertionError("K(a): create_genome_size's XML differs from "
+                             "the workload writer's")
+    for fa in os.listdir(genome):
+        if fa.endswith(".fai") and _read_bytes(os.path.join(gdir, fa)) != \
+                _read_bytes(os.path.join(genome, fa)):
+            raise AssertionError(f"K(a): {fa} differs from the workload "
+                                 "writer's")
+    log(f"K(a): create_genome_size {wall:.3f} s: GenomeSize.xml and .fai "
+        "equal to the workload writer's (each FASTA's md5 in place of its "
+        "placeholder)")
+    return walls
+
+
+def run_titration_recal(work: str, device):
+    """Phase K(b): apps/titration.run_titration(recalibrate=True) on the
+    card with -backend torch and numpy. Returns the torch run's record."""
+    import torch
+    from pisces_tpu_torch.apps.titration import run_titration
+    from pisces_tpu_torch.entry import vcf_body
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    from pisces_tpu_torch.utils.metrics import metrics
+
+    out, walls = {}, {}
+    for backend in ("torch", "numpy"):
+        d = os.path.join(work, f"titration_{backend}")
+        metrics.reset()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        points = run_titration(d, sites_per_point=TITRATION_SITES,
+                               depth=TITRATION_DEPTH, recalibrate=True,
+                               device=device, backend=backend)
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t0
+        out[backend] = (points, dict(K.launch_counts),
+                        metrics.snapshot()["counters"],
+                        _read_bytes(os.path.join(d, "titration_summary.csv")),
+                        vcf_body(os.path.join(d, "titration.vcf.recal")))
+    if out["torch"][3] != out["numpy"][3]:
+        raise AssertionError("K(b): the titration summaries differ between "
+                             "-backend torch and numpy")
+    if out["torch"][4] != out["numpy"][4]:
+        raise AssertionError("K(b): the titration .recal bodies differ "
+                             "between -backend torch and numpy")
+    points, launches, counters = out["torch"][:3]
+    log(f"K(b): titration with VQR ({TITRATION_SITES} sites a VF point, "
+        f"{TITRATION_DEPTH}x): {walls['torch']:.2f} s (-backend torch), "
+        f"{walls['numpy']:.2f} s (numpy); summaries and .recal bodies "
+        f"equal; score_tuples launched {launches['score_tuples']} time(s) "
+        f"(no gVCF); {counters.get('candidate_batches_on_device', 0):.0f} "
+        f"candidate batch(es) of {counters.get('candidates_scored', 0):,.0f} "
+        "candidates reached the device threshold")
+    log("K(b): " + "; ".join(
+        f"VF {p.vf:.0%}: R {p.recall:.2f} P {p.precision:.2f} "
+        f"(tp={p.tp} fp={p.fp} fn={p.fn})"
+        for p in sorted(points.values(), key=lambda p: p.vf)))
+    return {"run": "K(b) titration -recal", "wall_s": walls["torch"],
+            "launches": launches["score_tuples"]}
+
+
+def run_satellite_paths(work: str, device, smi: str):
+    """Phase K on phase 3's outputs. Returns the runs' records."""
+    from pisces_tpu_torch.ops import scoring_kernels as K
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    walls = run_satellite_tools(work)
+    tools = {"run": "K(a) satellites", "launches":
+             K.launch_counts["score_tuples"], "walls": walls}
+    titration = run_titration_recal(work, device)
+    log(f"phase K: {time.perf_counter() - t0:.1f} s ({smi})")
+    return [tools, titration]
+
+
+# ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
 
@@ -1939,6 +2153,10 @@ def main_smoke() -> int:
         # phase G: the caller options on the same workload
         option_runs = run_option_paths(work, main_body)
         del main_body
+
+        # phase K: the satellites on phase 3's gVCFs, and the titration
+        # VQR arm
+        satellite_runs = run_satellite_paths(work, device, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2053,7 +2271,7 @@ def main_smoke() -> int:
             **{r["run"]: r["launches"]
                for r in (win_runs + sched_runs + mh_runs + ploidy_runs
                          + option_runs + tagged_runs + mnv_runs
-                         + gemini_runs)
+                         + gemini_runs + satellite_runs)
                if "launches" in r}},
         "max_abs_err": err["score_tuples"],
         "ms": t["ms"],

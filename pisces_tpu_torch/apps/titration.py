@@ -259,15 +259,15 @@ def run_titration(outdir: str,
     """Generate → call (canonical somatic flags) → score. Writes
     ``titration_summary.csv`` next to the VCF (the run_analysis.sh summary
     shape: one row per VF point). `device` and `backend` as
-    apps/pisces.process_bam takes them. ``recalibrate`` (VQR before
-    scoring) is not yet ported (ROADMAP Queue 1 item 10)."""
+    apps/pisces.process_bam takes them. ``recalibrate`` additionally runs
+    VQR (satellites/vqr.py, on the host) before scoring — off by default,
+    matching run_analysis.sh (no VQR step): mutation-category z-tests on a
+    panel this small flag ordinary categories (e.g. 6 G>T of 28 variants
+    reads as oxidation) and zero genuine calls."""
     from pisces_tpu_torch.apps.pisces import process_bam
     from pisces_tpu_torch.io.fasta import Genome
     from pisces_tpu_torch.options import PiscesApplicationOptions
 
-    if recalibrate:
-        raise NotImplementedError("VQR recalibration is not yet ported "
-                                  "(ROADMAP Queue 1 item 10)")
     bam, gdir, truth = generate_titration_workload(
         outdir, vf_points, sites_per_point, depth, seed=seed,
         chrom_len=chrom_len)
@@ -288,6 +288,12 @@ def run_titration(outdir: str,
     vcp.rmxn_filter_frequency_limit = 0.35
     o.validate()
     vcf = process_bam(o, bam, Genome(gdir), device=device, backend=backend)
+    if recalibrate:
+        from pisces_tpu_torch.satellites import vqr
+        rc = vqr.main(["-vcf", vcf, "-o", outdir])
+        recal = vcf + ".recal"
+        if rc == 0 and os.path.exists(recal):
+            vcf = recal  # category z-scored above baseline: use recal q's
     points = score_calls(vcf, truth, vf_points)
     csv = os.path.join(outdir, "titration_summary.csv")
     with open(csv, "w") as f:
@@ -312,11 +318,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sites", type=int, default=40)
     p.add_argument("--depth", type=int, default=1000)
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--recal", action="store_true",
+                   help="run VQR recalibration before scoring")
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("-backend", default="torch", choices=["torch", "numpy"])
     a = p.parse_args(argv)
     vfs = tuple(float(x) for x in a.vfs.split(","))
-    points = run_titration(a.out, vfs, a.sites, a.depth, device=a.device,
+    points = run_titration(a.out, vfs, a.sites, a.depth,
+                           recalibrate=a.recal, device=a.device,
                            backend=a.backend, seed=a.seed)
     for pt in sorted(points.values(), key=lambda p: p.vf):
         print(f"VF {pt.vf:.2%}: recall {pt.recall:.3f} "

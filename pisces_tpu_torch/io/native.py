@@ -87,15 +87,20 @@ def _host_cpu() -> bytes:
     return os.uname().machine.encode()
 
 
-def library_path() -> str:
+def _build_hash(sources, flags, extra: bytes = b"") -> str:
+    """12 hex digits of the sources, the compiler line and `extra`."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sources:
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
-    digest.update(" ".join((CXX, *CXX_FLAGS, *LINK_FLAGS)).encode())
-    digest.update(_host_cpu())
-    return os.path.join(BUILD_DIR,
-                        f"libpisces_io-{digest.hexdigest()[:12]}.so")
+    digest.update(" ".join((CXX, *flags, *LINK_FLAGS)).encode())
+    digest.update(extra)
+    return digest.hexdigest()[:12]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, "libpisces_io-"
+                        f"{_build_hash(_sources(), CXX_FLAGS, _host_cpu())}.so")
 
 
 def build_native() -> NativeLibrary:
@@ -115,28 +120,56 @@ def _build_native() -> NativeLibrary:
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(path):
-        cxx = shutil.which(CXX)
-        if cxx is None:
-            raise RuntimeError(f"{CXX} not found: the port's native host "
-                               "module builds with g++ and zlib at first use")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [cxx, *CXX_FLAGS, *_sources(), "-o", tmp, *LINK_FLAGS],
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"{CXX} failed building the native host module from "
-                    f"{_NATIVE_DIR}:\n{log}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        log = _compile(path, CXX_FLAGS, _sources(), "the native host module")
     _native = NativeLibrary(path, time.perf_counter() - t0, log)
     return _native
+
+
+def _compile(path: str, flags, sources, what: str) -> str:
+    """g++ `sources` with `flags` into `path` (through a temporary file in
+    BUILD_DIR, os.replace'd into place); returns g++'s output and raises
+    RuntimeError with it if the build fails."""
+    cxx = shutil.which(CXX)
+    if cxx is None:
+        raise RuntimeError(f"{CXX} not found: the port's native host "
+                           "module builds with g++ and zlib at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=os.path.splitext(path)[1],
+                               dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cxx, *flags, *sources, "-o", tmp, *LINK_FLAGS],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{CXX} failed building {what} from "
+                               f"{_NATIVE_DIR}:\n{log}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return log
+
+
+# The ThreadSanitizer harness (io/_native/tsan/tsan_check.cpp): outside
+# the directory _sources() globs, so the library never links its main()
+TSAN_SOURCE = os.path.join(_NATIVE_DIR, "tsan", "tsan_check.cpp")
+TSAN_FLAGS = ("-O1", "-g", "-fsanitize=thread", "-fPIC", "-std=c++17",
+              "-Wall")
+
+
+def build_tsan_check() -> str:
+    """Build the ThreadSanitizer harness with the library's sources into
+    BUILD_DIR/tsan_check-<hash> (hash of the sources and flags) at first
+    use; returns its path. A failed build raises RuntimeError with g++'s
+    output. Run: tsan_check <bam> [n_threads] [iters] [ref_codes]."""
+    sources = [*_sources(), TSAN_SOURCE]
+    path = os.path.join(BUILD_DIR,
+                        f"tsan_check-{_build_hash(sources, TSAN_FLAGS)}")
+    with _lock:
+        if not os.path.exists(path):
+            _compile(path, TSAN_FLAGS, sources, "the ThreadSanitizer harness")
+    return path
 
 
 def get_lib() -> ctypes.CDLL:

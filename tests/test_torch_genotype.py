@@ -435,9 +435,20 @@ def test_run_titration_matches_reference(tmp_path):
             [ln for ln in want if not ln.startswith("##")]
     for k, n in ((0, 0), (3, 10), (40, 40), (7, 15)):
         assert wilson_ci(k, n) == jax_wilson_ci(k, n)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_titration(str(tmp_path / "r"), recalibrate=True, device="cpu",
-                      **kw)
+    # the VQR arm: VQR on the caller's VCF, then scoring of its .recal
+    res = run_titration(str(tmp_path / "tr"), recalibrate=True, device="cpu",
+                        **kw)
+    ref = jax_run_titration(str(tmp_path / "jr"), recalibrate=True,
+                            use_device=True, **kw)
+    assert {vf: vars(p) for vf, p in res.items()} == \
+        {vf: vars(p) for vf, p in ref.items()}
+    for name in ("titration_summary.csv", "titration.counts"):
+        assert (tmp_path / "tr" / name).read_text() == \
+            (tmp_path / "jr" / name).read_text(), name
+    bodies = [[ln for ln in (tmp_path / d / "titration.vcf.recal")
+               .read_text().splitlines() if not ln.startswith("#")]
+              for d in ("tr", "jr")]
+    assert bodies[0] == bodies[1] and len(bodies[0]) > 0
 
 
 HEADER = """##fileformat=VCFv4.1

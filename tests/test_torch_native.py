@@ -436,3 +436,51 @@ def test_unusable_compiler_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="false failed building"):
         native.get_lib()
     assert os.listdir(tmp_path) == []
+
+
+def _tsan_usable(tmp) -> bool:
+    """Whether g++ here builds and runs any ThreadSanitizer program."""
+    import shutil
+    import subprocess
+    if shutil.which(native.CXX) is None:
+        return False
+    src, exe = os.path.join(tmp, "probe.cpp"), os.path.join(tmp, "probe")
+    with open(src, "w") as f:
+        f.write("#include <thread>\nint main() { int x = 0; "
+                "std::thread t([&] { x = 1; }); t.join(); return x - 1; }\n")
+    if subprocess.run([native.CXX, "-fsanitize=thread", src, "-o", exe,
+                       "-lpthread"], capture_output=True).returncode != 0:
+        return False
+    return subprocess.run([exe], capture_output=True).returncode == 0
+
+
+def test_tsan_harness_over_the_port_library(workload, tmp_path):
+    """The ThreadSanitizer harness (io/_native/tsan/tsan_check.cpp), built
+    from the port's sources: 8 threads x 3 iterations, each a handle of its
+    own, decoding the whole file and pileup-counting it, then each
+    chromosome through bam_pileup_mm with its reference codes and
+    pileup_gvcf_unique, as a -MaxThreads job does. TSan exits non-zero on
+    a data race; the harness on unequal checksums across threads."""
+    import subprocess
+    if not _tsan_usable(str(tmp_path)):
+        pytest.skip("this toolchain cannot build a ThreadSanitizer program")
+    exe = native.build_tsan_check()   # a failed build raises: a failure
+    assert os.path.dirname(exe) == native.BUILD_DIR
+    assert native.TSAN_SOURCE not in native._sources()
+    bam, genome = workload
+    names = BamReader(bam).header.ref_names
+    codes = str(tmp_path / "ref_codes.bin")
+    with open(codes, "wb") as f:
+        for name in names:
+            f.write(BASE_TO_ALLELE[genome.get_chr_reference(name).sequence]
+                    .astype(np.int8).tobytes())
+    r = subprocess.run([exe, bam, "8", "3", codes], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "tsan_check ok: 8 threads x 3 iters" in r.stdout
+    assert "WARNING: ThreadSanitizer" not in r.stderr
+    # the mismatch pass and the gVCF dedup ran on every chromosome
+    fields = dict(part.strip().rsplit(" ", 1)
+                  for part in r.stdout.strip().split(",")[1:])
+    assert int(fields["mismatches"]) > 0
+    assert int(fields["unique tuples"]) > 0
