@@ -157,7 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
            "per-chromosome shards")
     a("-profiledir", default=None,
       help="capture a torch.profiler trace (Chrome trace format) of the "
-           "run into this directory")
+           "run, with its stage spans, into this directory's trace.json")
     a("-metricsjson", default=None,
       help="write stage timings / counters / device memory watermark as "
            "JSON to this path at exit")

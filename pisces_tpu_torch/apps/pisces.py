@@ -338,54 +338,55 @@ def write_spliced(writer, variant_alleles, ref_lines) -> None:
     locus's reference allele when only forced alleles coexist
     (AlleleCaller.cs:143-150 guards the prune on a non-forced variant).
     `ref_lines` is None or (positions, fast_gvcf.RefLineBlock)."""
-    variant_positions = {}
-    for a in variant_alleles:
-        variant_positions.setdefault(a.position, []).append(a)
-    if ref_lines is None:
-        positions, lines = np.empty(0, np.int64), None
-    else:
-        positions, lines = ref_lines
-        positions = np.asarray(positions, dtype=np.int64)
-    fh = writer._fh
-    ri = 0
-    n_ref = len(positions)
-
-    def _bulk_refs_upto(j: int) -> None:
-        nonlocal ri
-        if j > ri:
-            # one buffer-slice write, no per-line string objects
-            lines.write_range(fh, ri, j)
-            ri = j
-
-    for pos in sorted(variant_positions):
-        # bulk-write the run of reference lines before this variant locus
-        _bulk_refs_upto(int(np.searchsorted(positions, pos)))
-        has_ref_line = ri < n_ref and int(positions[ri]) == pos
-        at_pos = variant_positions[pos]
-        keep_ref = has_ref_line and all(a.is_forced_to_report
-                                        for a in at_pos)
-        if writer.config.allow_multiple_vcf_lines_per_loci:
-            # locus ordering is by (ref, alt) with the reference line
-            # keyed by its base (AlleleCaller.cs:172-176 sort)
-            ref_key = None
-            if keep_ref:
-                ref_base = lines.line(ri).split("\t", 4)[3]
-                ref_key = (ref_base, ref_base)
-            for a in at_pos:
-                if ref_key is not None and ref_key <= (a.ref_allele,
-                                                       a.alt_allele):
-                    fh.write(lines.line(ri) + "\n")
-                    ref_key = None
-                writer.write_colocated([a])
-            if ref_key is not None:
-                fh.write(lines.line(ri) + "\n")
+    with metrics.stage("vcf_write"):
+        variant_positions = {}
+        for a in variant_alleles:
+            variant_positions.setdefault(a.position, []).append(a)
+        if ref_lines is None:
+            positions, lines = np.empty(0, np.int64), None
         else:
-            if keep_ref:
-                fh.write(lines.line(ri) + "\n")
-            writer.write_colocated(at_pos)
-        if has_ref_line:
-            ri += 1
-    _bulk_refs_upto(n_ref)
+            positions, lines = ref_lines
+            positions = np.asarray(positions, dtype=np.int64)
+        fh = writer._fh
+        ri = 0
+        n_ref = len(positions)
+
+        def _bulk_refs_upto(j: int) -> None:
+            nonlocal ri
+            if j > ri:
+                # one buffer-slice write, no per-line string objects
+                lines.write_range(fh, ri, j)
+                ri = j
+
+        for pos in sorted(variant_positions):
+            # bulk-write the run of reference lines before this variant locus
+            _bulk_refs_upto(int(np.searchsorted(positions, pos)))
+            has_ref_line = ri < n_ref and int(positions[ri]) == pos
+            at_pos = variant_positions[pos]
+            keep_ref = has_ref_line and all(a.is_forced_to_report
+                                            for a in at_pos)
+            if writer.config.allow_multiple_vcf_lines_per_loci:
+                # locus ordering is by (ref, alt) with the reference line
+                # keyed by its base (AlleleCaller.cs:172-176 sort)
+                ref_key = None
+                if keep_ref:
+                    ref_base = lines.line(ri).split("\t", 4)[3]
+                    ref_key = (ref_base, ref_base)
+                for a in at_pos:
+                    if ref_key is not None and ref_key <= (a.ref_allele,
+                                                           a.alt_allele):
+                        fh.write(lines.line(ri) + "\n")
+                        ref_key = None
+                    writer.write_colocated([a])
+                if ref_key is not None:
+                    fh.write(lines.line(ri) + "\n")
+            else:
+                if keep_ref:
+                    fh.write(lines.line(ri) + "\n")
+                writer.write_colocated(at_pos)
+            if has_ref_line:
+                ri += 1
+        _bulk_refs_upto(n_ref)
 
 
 def load_forced_alleles(paths: List[str]) -> set:
@@ -494,11 +495,12 @@ def call_chromosome_windowed(options, chrom, reader, ref_id: int,
     windows = [(w0, min(w0 + win, L)) for w0 in range(0, L, win)]
 
     def run(handle, w0: int, w1: int):
-        view = _RegionView(handle, ref_id, max(0, w0 - margin),
-                           min(L, w1 + margin))
-        result = call_chromosome(options, chrom, view, intervals, device,
-                                 mesh, forced_alleles, priors)
-        return _trim_window_result(result, w0, w1)
+        with metrics.stage("window", cpu=True):
+            view = _RegionView(handle, ref_id, max(0, w0 - margin),
+                               min(L, w1 + margin))
+            result = call_chromosome(options, chrom, view, intervals, device,
+                                     mesh, forced_alleles, priors)
+            return _trim_window_result(result, w0, w1)
 
     if pipeline_threads <= 1 or reader_factory is None or len(windows) <= 1:
         for w0, w1 in windows:
@@ -517,7 +519,9 @@ def call_chromosome_windowed(options, chrom, reader, ref_id: int,
         return run(handles[slot], w0, w1)
 
     try:
-        futures = [execs[i].submit(work, i, *windows[i])
+        # each window's spans nest under the span open where it is handed
+        # to its worker
+        futures = [execs[i].submit(metrics.carry(work), i, *windows[i])
                    for i in range(n_workers)]
         for i, (w0, w1) in enumerate(windows):
             trimmed = futures[i].result()
@@ -525,7 +529,7 @@ def call_chromosome_windowed(options, chrom, reader, ref_id: int,
             nxt = i + n_workers
             if nxt < len(windows):
                 futures.append(execs[nxt % n_workers].submit(
-                    work, nxt % n_workers, *windows[nxt]))
+                    metrics.carry(work), nxt % n_workers, *windows[nxt]))
             yield trimmed, w0 + 1, w1
     finally:
         for ex in execs:
@@ -662,8 +666,9 @@ def process_bam(options: PiscesApplicationOptions, bam_path: str,
                 else:
                     alleles = result
                     mapper = make_region_mapper(options, chrom, intervals)
-                    writer.write(alleles, mapper)
-                    writer.write_remaining(mapper)
+                    with metrics.stage("vcf_write"):
+                        writer.write(alleles, mapper)
+                        writer.write_remaining(mapper)
             for bw in bias_writers:
                 bw.write(alleles)
             log(f"Completed processing chr {chrom_name} in "
@@ -740,8 +745,9 @@ def main(argv=None) -> int:
 
     from pisces_tpu_torch.utils.app import run_application
     log_dir = args.out or os.path.dirname(os.path.abspath(bam_paths[0]))
-    return run_application(args.baselogname or "Pisces", execute, options,
-                           log_dir)
+    with metrics.sample():
+        return run_application(args.baselogname or "Pisces", execute,
+                               options, log_dir)
 
 
 if __name__ == "__main__":

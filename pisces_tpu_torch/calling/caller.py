@@ -40,6 +40,7 @@ from pisces_tpu_torch.ops import stats
 from pisces_tpu_torch.ops.coverage import compute_coverage
 from pisces_tpu_torch.pileup.candidates import Candidate
 from pisces_tpu_torch.pileup.counts import PileupCounts
+from pisces_tpu_torch.utils.metrics import metrics
 
 
 @dataclass
@@ -191,22 +192,26 @@ class AlleleCaller:
                                alleles: List[CalledAllele]) -> None:
         if not alleles:
             return
-        point: List[CalledAllele] = []
-        spanning: List[CalledAllele] = []
-        for a in alleles:
-            if a.category in (AlleleCategory.DELETION, AlleleCategory.MNV,
-                              AlleleCategory.INSERTION):
-                spanning.append(a)
-            else:
-                point.append(a)
-        if point:
-            self._batch_point_coverage(source, point)
-        for a in spanning:
-            self._compute_spanning_coverage(source, a)
+        with metrics.stage("allele_calling.coverage"):
+            point: List[CalledAllele] = []
+            spanning: List[CalledAllele] = []
+            for a in alleles:
+                if a.category in (AlleleCategory.DELETION, AlleleCategory.MNV,
+                                  AlleleCategory.INSERTION):
+                    spanning.append(a)
+                else:
+                    point.append(a)
+            if point:
+                self._batch_point_coverage(source, point)
+            for a in spanning:
+                self._compute_spanning_coverage(source, a)
 
-        self._score_batch([a for a in alleles if a.allele_support > 0], source)
-        for a in alleles:
-            self._apply_filters(a)
+        with metrics.stage("allele_calling.scoring"):
+            self._score_batch([a for a in alleles if a.allele_support > 0],
+                              source)
+        with metrics.stage("allele_calling.filters"):
+            for a in alleles:
+                self._apply_filters(a)
 
     def _compute_spanning_coverage(self, source: AlleleSource,
                                    a: CalledAllele) -> None:
@@ -399,7 +404,6 @@ class AlleleCaller:
         from pisces_tpu_torch.ops.torch_scoring import (
             ScoringParams, score_snv_loci,
         )
-        from pisces_tpu_torch.utils.metrics import metrics
         metrics.count("candidate_batches_on_device", 1)
         metrics.count("candidates_on_device", n)
         cfg = self.config
@@ -431,10 +435,12 @@ class AlleleCaller:
             return torch.from_numpy(
                 np.ascontiguousarray(x, dtype=np.int32)).to(cfg.device)
 
-        out = score_snv_loci(dev(sup_by_dir), dev(cov_by_dir),
-                             dev(ref_support), dev(num_no_calls), dev(cov),
-                             params)
-        return out["variant_qscore"].cpu().numpy().astype(np.int64)
+        with metrics.stage("card_round_trip"):
+            out = score_snv_loci(dev(sup_by_dir), dev(cov_by_dir),
+                                 dev(ref_support), dev(num_no_calls),
+                                 dev(cov), params)
+            q = out["variant_qscore"].cpu().numpy()
+        return q.astype(np.int64)
 
     def _apply_filters(self, a: CalledAllele) -> None:
         """AlleleProcessor.Process/ApplyFilters (AlleleProcessor.cs:16-71)."""
@@ -521,62 +527,73 @@ class AlleleCaller:
         callable_alleles: List[CalledAllele] = []
         leftover: List[Candidate] = []
 
-        if self.collapser is not None:
-            candidates = self.collapser.collapse(list(candidates), source,
-                                                 max_position)
-            leftover = self.collapser.not_cleared
+        # five steps, each a stage, that together tile the call:
+        # prepare (collapse, mapping, MNV triage), then coverage, scoring
+        # and filters (process_variants_batch), the callable/report/forced
+        # pass (filters again) and genotype
+        with metrics.stage("allele_calling.prepare"):
+            if self.collapser is not None:
+                candidates = self.collapser.collapse(list(candidates), source,
+                                                     max_position)
+                leftover = self.collapser.not_cleared
 
-        mapped = [map_candidate(cand) for cand in candidates]
-        self.process_variants_batch(
-            source, [v for v in mapped if v.category == AlleleCategory.MNV])
-        for variant in mapped:
-            if variant.category == AlleleCategory.MNV:
-                if self._is_callable(variant):
-                    callable_alleles.append(variant)
+            mapped = [map_candidate(cand) for cand in candidates]
+            mnvs = [v for v in mapped if v.category == AlleleCategory.MNV]
+        self.process_variants_batch(source, mnvs)
+        with metrics.stage("allele_calling.prepare"):
+            for variant in mapped:
+                if variant.category == AlleleCategory.MNV:
+                    if self._is_callable(variant):
+                        callable_alleles.append(variant)
+                    else:
+                        failed_mnvs.append(variant)
                 else:
-                    failed_mnvs.append(variant)
-            else:
-                callable_alleles.append(variant)
+                    callable_alleles.append(variant)
 
-        spilled = reallocate_failed_mnvs(failed_mnvs, callable_alleles, max_position)
-        # spilled alleles re-enter the next region's candidate pool
-        self.spilled_next_region = spilled
+            spilled = reallocate_failed_mnvs(failed_mnvs, callable_alleles,
+                                             max_position)
+            # spilled alleles re-enter the next region's candidate pool
+            self.spilled_next_region = spilled
 
-        source.add_gapped_mnv_ref_counts(
-            get_ref_support_from_gapped_mnvs(callable_alleles))
+            source.add_gapped_mnv_ref_counts(
+                get_ref_support_from_gapped_mnvs(callable_alleles))
 
-        for failed in failed_mnvs:
-            if self._is_forced(failed):
-                callable_alleles.append(failed)
+            for failed in failed_mnvs:
+                if self._is_forced(failed):
+                    callable_alleles.append(failed)
 
         by_position: Dict[int, List[CalledAllele]] = {}
         self.process_variants_batch(source, callable_alleles)
-        for a in callable_alleles:
-            if self._is_forced(a) and not (self._is_callable(a) and self._should_report(a)):
-                a.is_forced_to_report = True
-                a.add_filter(FilterType.FORCED_REPORT)
-            if (self._is_callable(a) and self._should_report(a)) or self._is_forced(a):
-                by_position.setdefault(a.position, []).append(a)
+        with metrics.stage("allele_calling.filters"):
+            for a in callable_alleles:
+                if self._is_forced(a) and not (self._is_callable(a)
+                                               and self._should_report(a)):
+                    a.is_forced_to_report = True
+                    a.add_filter(FilterType.FORCED_REPORT)
+                if ((self._is_callable(a) and self._should_report(a))
+                        or self._is_forced(a)):
+                    by_position.setdefault(a.position, []).append(a)
 
-        # somatic GT/GQ is elementwise per allele (SomaticGenotyper never
-        # prunes and has no cross-allele state), so one batched numpy pass
-        # over every locus replaces 1-allele-per-call dispatch; diploid
-        # models keep the per-locus path (multi-allelic pruning is
-        # locus-coupled)
-        batched_gt = (cfg.ploidy_model == PloidyModel.SOMATIC
-                      and bool(by_position))
-        if batched_gt:
-            flat = [a for pos in by_position for a in by_position[pos]
-                    if not a.is_forced_to_report]
-            if flat:
-                self._set_genotypes(flat)
-        for pos in by_position:
-            alleles_at_pos = by_position[pos]
-            self._compute_genotype_and_filter(alleles_at_pos,
-                                              gt_precomputed=batched_gt)
-            self._locus_process(alleles_at_pos)
+        with metrics.stage("allele_calling.genotype"):
+            # somatic GT/GQ is elementwise per allele (SomaticGenotyper
+            # never prunes and has no cross-allele state), so one batched
+            # numpy pass over every locus replaces 1-allele-per-call
+            # dispatch; diploid models keep the per-locus path
+            # (multi-allelic pruning is locus-coupled)
+            batched_gt = (cfg.ploidy_model == PloidyModel.SOMATIC
+                          and bool(by_position))
+            if batched_gt:
+                flat = [a for pos in by_position for a in by_position[pos]
+                        if not a.is_forced_to_report]
+                if flat:
+                    self._set_genotypes(flat)
+            for pos in by_position:
+                alleles_at_pos = by_position[pos]
+                self._compute_genotype_and_filter(alleles_at_pos,
+                                                  gt_precomputed=batched_gt)
+                self._locus_process(alleles_at_pos)
 
-        return dict(sorted(by_position.items()))
+            return dict(sorted(by_position.items()))
 
     def _compute_genotype_and_filter(self, alleles: List[CalledAllele],
                                      gt_precomputed: bool = False) -> None:

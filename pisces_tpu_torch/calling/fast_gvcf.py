@@ -140,12 +140,13 @@ def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params, device,
     elif device is not None and len(uniq) >= DEVICE_TUPLE_THRESHOLD:
         metrics.count("gvcf_unique_tuples_on_device", len(uniq))
         from pisces_tpu_torch.ops.scoring_kernels import score_reference_tuples
-        tuples = torch.from_numpy(
-            np.ascontiguousarray(uniq[:, :6], dtype=np.int32)).to(device)
-        out_u = score_reference_tuples(tuples, params)
         keep_keys = ("total_coverage", "support", "variant_qscore",
                      "frequency", "genotype", "gq", "sb_gatk")
-        out = {k: out_u[k].cpu().numpy() for k in keep_keys}
+        with metrics.stage("card_round_trip"):
+            tuples = torch.from_numpy(
+                np.ascontiguousarray(uniq[:, :6], dtype=np.int32)).to(device)
+            out_u = score_reference_tuples(tuples, params)
+            out = {k: out_u[k].cpu().numpy() for k in keep_keys}
     else:
         out = _score_host_tuples(uniq[:, :3], uniq[:, 3:6], params)
     if pad_flag is not None:

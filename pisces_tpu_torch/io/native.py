@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 
 from pisces_tpu_torch.options import REGION_SIZE
+from pisces_tpu_torch.utils.metrics import metrics
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "_native")
@@ -378,8 +379,10 @@ class NativeBamReader:
         if lazy:
             self._h = lib.bam_open_lazy(path.encode())
         else:
-            self._h = lib.bam_open(path.encode(),
-                                   min(os.cpu_count() or 1, 16))
+            # the whole file inflates here, in C++ threads
+            with metrics.stage("bam_open"):
+                self._h = lib.bam_open(path.encode(),
+                                       min(os.cpu_count() or 1, 16))
         if not self._h:
             raise IOError(f"failed to open {path}")
         n_refs = lib.bam_n_refs(self._h)

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 from pisces_tpu_torch.utils.logger import log
+from pisces_tpu_torch.utils.metrics import metrics
 
 
 class JobManager:
@@ -40,11 +41,13 @@ class JobManager:
         self.error_mode = error_mode
 
     def process(self, jobs: List[Callable[[], None]]) -> None:
+        """Run the jobs on the pool; each job's spans nest under the span
+        open here."""
         if not jobs:
             return
         errors: List[BaseException] = []
         with cf.ThreadPoolExecutor(max_workers=self.max_threads) as pool:
-            futures = [pool.submit(j) for j in jobs]
+            futures = [pool.submit(metrics.carry(j)) for j in jobs]
             for f in cf.as_completed(futures):
                 exc = f.exception()
                 if exc is not None:
@@ -185,8 +188,9 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
             return
         chrom = genome.get_chr_reference(chrom_name)
         mapper = make_region_mapper(options, chrom, intervals)
-        writer.write(alleles, mapper)
-        writer.write_remaining(mapper)
+        with metrics.stage("vcf_write"):
+            writer.write(alleles, mapper)
+            writer.write_remaining(mapper)
 
     def _compute(chrom_name: str, bam):
         """The per-(bam, chr) calling work; returns the emit payload. Its
@@ -213,25 +217,27 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
         shard_lock = threading.Lock()
 
         def job(bam_path: str, chrom_name: str) -> None:
-            bam = _borrow(bam_path)
-            try:
-                payload = _compute(chrom_name, bam)
-                if not payload:
-                    return
-                writer, _ = writers[bam_path]
-                shard = f"{outputs[bam_paths.index(bam_path)]}_{chrom_name}"
-                shard_writer = VcfWriter(
-                    shard, writer.config, genome.directory,
-                    os.path.basename(bam_path), genome.chromosome_lengths,
-                    options.command_line)
+            with metrics.stage("scheduler.job", cpu=True):
+                bam = _borrow(bam_path)
                 try:
-                    _emit(shard_writer, chrom_name, payload)
+                    payload = _compute(chrom_name, bam)
+                    if not payload:
+                        return
+                    writer, _ = writers[bam_path]
+                    shard = (f"{outputs[bam_paths.index(bam_path)]}_"
+                             f"{chrom_name}")
+                    shard_writer = VcfWriter(
+                        shard, writer.config, genome.directory,
+                        os.path.basename(bam_path),
+                        genome.chromosome_lengths, options.command_line)
+                    try:
+                        _emit(shard_writer, chrom_name, payload)
+                    finally:
+                        shard_writer.close()
+                    with shard_lock:
+                        shard_paths[(bam_path, chrom_name)] = shard
                 finally:
-                    shard_writer.close()
-                with shard_lock:
-                    shard_paths[(bam_path, chrom_name)] = shard
-            finally:
-                _give_back(bam_path, bam)
+                    _give_back(bam_path, bam)
 
         JobManager(max_threads).process(
             [functools.partial(job, b, c) for c in chrom_names
@@ -251,16 +257,17 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
 
     def job(bam_path: str, chrom_name: str) -> None:
         _, ordered = writers[bam_path]
-        bam = _borrow(bam_path)
-        try:
+        with metrics.stage("scheduler.job", cpu=True):
+            bam = _borrow(bam_path)
             try:
-                payload = _compute(chrom_name, bam)
-            except Exception:
-                ordered.submit(chrom_name, [])
-                raise
-            ordered.submit(chrom_name, payload)
-        finally:
-            _give_back(bam_path, bam)
+                try:
+                    payload = _compute(chrom_name, bam)
+                except Exception:
+                    ordered.submit(chrom_name, [])
+                    raise
+                ordered.submit(chrom_name, payload)
+            finally:
+                _give_back(bam_path, bam)
 
     drainers = []
     for bam_path in bam_paths:
@@ -270,7 +277,7 @@ def process_bams_parallel(options, bam_paths: List[str], genome,
             ordered.drain(lambda chrom_name, payload:
                           _emit(writer, chrom_name, payload))
             writer.close()
-        t = threading.Thread(target=drain, daemon=True)
+        t = threading.Thread(target=metrics.carry(drain), daemon=True)
         t.start()
         drainers.append(t)
 

@@ -1,0 +1,12 @@
+"""Caller, step `genotype` (the genotypers, the per-locus pass and the final
+sort): the program's `allele_calling.genotype` stage microseconds (summed
+over threads) per candidate it scored (counter `candidates_scored`). The
+five `allele_calling.*` stages tile `AlleleCaller.call`."""
+
+
+def read(run):
+    s = run["stages"].get("allele_calling.genotype")
+    n = run["counters"].get("candidates_scored", 0)
+    if s is None or n <= 0:
+        return None
+    return s * 1e6 / n

@@ -1,0 +1,13 @@
+"""Caller, step `prepare` (collapse, candidate mapping, MNV triage and
+reallocation, gapped-MNV reference counts): the program's
+`allele_calling.prepare` stage microseconds (summed over threads) per
+candidate it scored (counter `candidates_scored`). The five
+`allele_calling.*` stages tile `AlleleCaller.call`."""
+
+
+def read(run):
+    s = run["stages"].get("allele_calling.prepare")
+    n = run["counters"].get("candidates_scored", 0)
+    if s is None or n <= 0:
+        return None
+    return s * 1e6 / n

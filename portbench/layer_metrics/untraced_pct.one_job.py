@@ -1,0 +1,5 @@
+"""untraced_pct, in the cells whose runs spread reads_per_s too widely
+to hold it end to end: the same reader, under a name whose moves is
+peak_rss_gib, the end-to-end metric those cells keep besides setup_s."""
+
+from portbench.layer_metrics.untraced_pct import read  # noqa: F401
