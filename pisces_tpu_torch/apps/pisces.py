@@ -169,9 +169,11 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                                    track_open_ended=options.collapse,
                                    base_dirs=base_dirs)
         with metrics.stage("candidates"):
-            candidates = aggregate_native_mismatches(
-                chrom.name, chrom.sequence, *mm) + indels
+            snvs = aggregate_native_mismatches(chrom.name, chrom.sequence,
+                                               *mm)
+        candidates = indels
     else:
+        snvs = None
         with metrics.stage("candidates"):
             candidates, _ = find_candidates_batch(
                 chrom.name, chrom.sequence, batch, keep,
@@ -218,6 +220,12 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
         from pisces_tpu_torch.io.vcf_read import classify
         existing = {(c.position, c.ref_allele, c.alt_allele)
                     for c in candidates}
+        if snvs is not None:
+            held = snvs.take(snvs.rows_in(
+                f[1:] for f in forced_alleles if f[0] == chrom.name))
+            existing.update(zip(held.position.tolist(),
+                                map(chr, held.ref_base),
+                                map(chr, held.alt_base)))
         for (chrom_name, pos, ref, alt) in sorted(forced_alleles):
             if chrom_name != chrom.name or (pos, ref, alt) in existing:
                 continue
@@ -249,8 +257,10 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
     if forced_alleles:
         caller.forced_alleles = {f for f in forced_alleles
                                  if f[0] == chrom.name}
+    n_candidates = len(candidates) + (len(snvs) if snvs is not None else 0)
     with metrics.stage("allele_calling"):
-        by_position = caller.call(candidates, source, max_position=None)
+        by_position = caller.call(candidates, source, max_position=None,
+                                  snvs=snvs)
         if (options.vcf_writing_parameters.report_rc_counts
                 and batch.extra_tags is not None):
             from pisces_tpu_torch.pileup.collapsed import (
@@ -258,7 +268,7 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
             )
             assign_collapsed_totals(by_position, collapsed_total_counts(
                 batch, keep, bf.minimum_base_call_quality, base_dirs))
-    metrics.count("candidates_scored", len(candidates))
+    metrics.count("candidates_scored", n_candidates)
 
     ref_lines = None
     if fast_gvcf:

@@ -12,6 +12,7 @@ torch device (ops/torch_scoring.score_snv_loci).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, List, Optional
@@ -23,8 +24,8 @@ if TYPE_CHECKING:
     from pisces_tpu_torch.parallel.sharding import Mesh
 
 from pisces_tpu_torch.domain.types import (
-    AlleleCategory, FilterType, Genotype, NoiseModel,
-    PloidyModel, StrandBiasModel,
+    BASE_TO_ALLELE, NUM_DIRECTION_TYPES, AlleleCategory, FilterType, Genotype,
+    NoiseModel, PloidyModel, StrandBiasModel,
 )
 from pisces_tpu_torch.options import PiscesApplicationOptions
 from pisces_tpu_torch.calling.alleles import CalledAllele, map_candidate
@@ -39,6 +40,7 @@ from pisces_tpu_torch.calling.source import AlleleSource
 from pisces_tpu_torch.ops import stats
 from pisces_tpu_torch.ops.coverage import compute_coverage
 from pisces_tpu_torch.pileup.candidates import Candidate
+from pisces_tpu_torch.pileup.candidates_fast import SnvCandidateBatch
 from pisces_tpu_torch.pileup.counts import PileupCounts
 from pisces_tpu_torch.utils.metrics import metrics
 
@@ -193,25 +195,28 @@ class AlleleCaller:
         if not alleles:
             return
         with metrics.stage("allele_calling.coverage"):
-            point: List[CalledAllele] = []
-            spanning: List[CalledAllele] = []
-            for a in alleles:
-                if a.category in (AlleleCategory.DELETION, AlleleCategory.MNV,
-                                  AlleleCategory.INSERTION):
-                    spanning.append(a)
-                else:
-                    point.append(a)
-            if point:
-                self._batch_point_coverage(source, point)
-            for a in spanning:
-                self._compute_spanning_coverage(source, a)
-
+            self._coverage(source, alleles)
         with metrics.stage("allele_calling.scoring"):
             self._score_batch([a for a in alleles if a.allele_support > 0],
                               source)
         with metrics.stage("allele_calling.filters"):
             for a in alleles:
                 self._apply_filters(a)
+
+    def _coverage(self, source: AlleleSource,
+                  alleles: List[CalledAllele]) -> None:
+        point: List[CalledAllele] = []
+        spanning: List[CalledAllele] = []
+        for a in alleles:
+            if a.category in (AlleleCategory.DELETION, AlleleCategory.MNV,
+                              AlleleCategory.INSERTION):
+                spanning.append(a)
+            else:
+                point.append(a)
+        if point:
+            self._batch_point_coverage(source, point)
+        for a in spanning:
+            self._compute_spanning_coverage(source, a)
 
     def _compute_spanning_coverage(self, source: AlleleSource,
                                    a: CalledAllele) -> None:
@@ -256,50 +261,17 @@ class AlleleCaller:
         """Columnar CalculateSinglePoint (CoverageCalculator.cs:49-98) over a
         batch of SNV/reference alleles: one gather from the flat count
         tensors instead of 36 scalar lookups per allele."""
-        from pisces_tpu_torch.domain.types import (
-            COVERAGE_CONTRIBUTING_ALLELES, AlleleType, get_allele_type,
-        )
-        cov_alleles = np.array([int(x) for x in COVERAGE_CONTRIBUTING_ALLELES])
+        from pisces_tpu_torch.domain.types import get_allele_type
         n = len(alleles)
         pos = np.fromiter((a.position for a in alleles), np.int64, n)
-        rows = np.atleast_1d(source.pc.pos_index(pos))
-        counts, quals = source._flat_counts, source._flat_quals
-        safe = np.maximum(rows, 0)
-        if len(counts) == 0:
-            c = np.zeros((n, counts.shape[1] if counts.ndim > 1 else 6, 3),
-                         np.int64)
-            qv = np.zeros_like(c, dtype=np.float64)
-        else:
-            c = counts[safe]
-            qv = quals[safe]
-            miss = rows < 0
-            if miss.any():
-                c = np.where(miss[:, None, None], 0, c)
-                qv = np.where(miss[:, None, None], 0.0, qv)
-        cov_by_dir = c[:, cov_alleles, :].sum(axis=1)   # [n, 3]
-        total = cov_by_dir.sum(axis=1)
-        # base-quality sums folded in the reference's accumulation order
-        # (direction-major, then allele) so f64 rounding matches the scalar
-        # path bit for bit (WINDOW noise model consumes this)
-        qflat = qv[:, cov_alleles, :].transpose(0, 2, 1).reshape(n, -1)
-        sum_bq = np.zeros(n, np.float64)
-        for j in range(qflat.shape[1]):
-            sum_bq += qflat[:, j]
-        num_nc = c[:, int(AlleleType.N), :].sum(axis=1)
         ref_types = np.fromiter(
             (int(get_allele_type(a.ref_allele[0])) for a in alleles),
             np.int64, n)
-        ref_sup = c[np.arange(n), ref_types, :].sum(axis=1)
-
+        cols = _point_coverage_columns(source, pos, ref_types)
+        ref_sup = cols[-1]
         gapped = source.gapped_mnv_ref_counts
         for i, a in enumerate(alleles):
-            t = int(total[i])
-            a.total_coverage = t
-            a.coverage_by_direction = cov_by_dir[i].astype(np.int64)
-            a.num_no_calls = int(num_nc[i])
-            a.sum_of_base_quality = float(sum_bq[i])
-            a.confident_coverage_start = t
-            a.confident_coverage_end = t
+            _set_point_coverage(a, cols, i)
             rs = int(ref_sup[i])
             g = gapped.get(a.position, 0) if gapped else 0
             if a.category == AlleleCategory.SNV:
@@ -316,20 +288,35 @@ class AlleleCaller:
         n = len(alleles)
         if n == 0:
             return
-        sup = np.fromiter((a.allele_support for a in alleles), np.int64, n)
-        cov = np.fromiter((a.total_coverage for a in alleles), np.int64, n)
-        sup_by_dir = np.stack([a.support_by_direction for a in alleles]
-                              ).astype(np.int64)
-        cov_by_dir = np.stack([a.coverage_by_direction for a in alleles]
-                              ).astype(np.int64)
+        scores = self._score_columns(*_allele_columns(alleles))
+        self._set_scores(alleles, scores, range(n))
 
+        if cfg.amplicon_bias_filter_threshold is not None:
+            from pisces_tpu_torch.ops.amplicon_bias import calculate_amplicon_bias
+            for a in alleles:
+                if a.category != AlleleCategory.SNV:
+                    continue
+                support_by_amp = getattr(a, "support_by_amplicon", None) or {}
+                cov_by_amp = source.get_amplicon_coverage(a.position)
+                ab = calculate_amplicon_bias(
+                    support_by_amp, cov_by_amp,
+                    cfg.amplicon_bias_filter_threshold, cfg.max_variant_qscore)
+                if ab is not None:
+                    a.amplicon_bias_detected = ab["bias_detected"]
+                    a.amplicon_bias_results = ab["results"]
+
+    def _score_columns(self, sup, cov, sup_by_dir, cov_by_dir, ref_sup,
+                       num_nc, sum_bq):
+        """Q and strand bias of a batch given as columns (_allele_columns'
+        order). Returns (per-row noise, or None for the flat level; q;
+        the strand-bias dict)."""
+        cfg = self.config
+        n = len(sup)
         flat_noise = cfg.noise_level_used_for_q_scoring
         if cfg.noise_model == NoiseModel.WINDOW:
             noise = np.full(n, flat_noise, np.int64)
-            for i, a in enumerate(alleles):
-                if a.total_coverage > 0:
-                    noise[i] = int(stats.p_to_q(
-                        a.sum_of_base_quality / a.total_coverage))
+            for i in np.nonzero(cov > 0)[0]:
+                noise[i] = int(stats.p_to_q(float(sum_bq[i]) / int(cov[i])))
             q = np.zeros(n, np.int64)
             for nz in np.unique(noise):
                 m = noise == nz
@@ -353,23 +340,27 @@ class AlleleCaller:
         if q is None:
             if use_device:
                 q = self._qscore_batch_device(sup_by_dir, cov_by_dir, cov,
-                                              flat_noise, n,
-                                              [a.reference_support for a in alleles],
-                                              [a.num_no_calls for a in alleles])
+                                              flat_noise, n, ref_sup, num_nc)
             else:
                 q = stats.compute_variant_qscores(
                     sup, cov, cfg.max_variant_qscore, flat_noise)
         sb = stats.compute_strand_bias(
             sup_by_dir, cov_by_dir, flat_noise, cfg.min_frequency,
             cfg.strand_bias_filter_threshold, int(cfg.strand_bias_model))
+        return per_allele_noise, q, sb
 
+    def _set_scores(self, alleles: List[CalledAllele], scores, index) -> None:
+        """Give each allele its row of _score_columns' output (`index`: the
+        alleles' rows, in order)."""
+        per_allele_noise, q, sb = scores
+        flat_noise = self.config.noise_level_used_for_q_scoring
         bias_score = sb["bias_score"]
         gatk = sb["gatk_bias_score"]
         acceptable = sb["bias_acceptable"]
         var_both = sb["var_present_on_both_strands"]
         cov_both = sb["cov_present_on_both_strands"]
-        need_detail = cfg.need_sb_detail
-        for i, a in enumerate(alleles):
+        need_detail = self.config.need_sb_detail
+        for a, i in zip(alleles, index):
             a.noise_level_applied = (int(per_allele_noise[i])
                                      if per_allele_noise is not None
                                      else flat_noise)
@@ -381,20 +372,6 @@ class AlleleCaller:
             a.cov_present_on_both_strands = bool(cov_both[i])
             if need_detail:
                 a.sb_detail = _SbSliceView(sb, i)
-
-        if cfg.amplicon_bias_filter_threshold is not None:
-            from pisces_tpu_torch.ops.amplicon_bias import calculate_amplicon_bias
-            for a in alleles:
-                if a.category != AlleleCategory.SNV:
-                    continue
-                support_by_amp = getattr(a, "support_by_amplicon", None) or {}
-                cov_by_amp = source.get_amplicon_coverage(a.position)
-                ab = calculate_amplicon_bias(
-                    support_by_amp, cov_by_amp,
-                    cfg.amplicon_bias_filter_threshold, cfg.max_variant_qscore)
-                if ab is not None:
-                    a.amplicon_bias_detected = ab["bias_detected"]
-                    a.amplicon_bias_results = ab["results"]
 
     def _qscore_batch_device(self, sup_by_dir, cov_by_dir, cov, noise_level,
                              n, ref_support, num_no_calls):
@@ -519,51 +496,33 @@ class AlleleCaller:
     # -- main entry -----------------------------------------------------------
 
     def call(self, candidates: List[Candidate], source: AlleleSource,
-             max_position: Optional[int] = None
+             max_position: Optional[int] = None,
+             snvs: Optional[SnvCandidateBatch] = None
              ) -> Dict[int, List[CalledAllele]]:
-        """CallForPositions: returns {position: [alleles sorted by ref,alt]}."""
-        cfg = self.config
-        failed_mnvs: List[CalledAllele] = []
-        callable_alleles: List[CalledAllele] = []
-        leftover: List[Candidate] = []
+        """CallForPositions: returns {position: [alleles sorted by ref,alt]}.
 
+        `snvs` holds more SNV candidates as columns; in the reference's
+        order they come before `candidates` (the native flow passes its
+        SNVs so, and its indels, forced and reference candidates as
+        objects). Where no step reads every allele, the rows are scored as
+        columns and only those reported or forced become CalledAlleles;
+        otherwise they join `candidates` as objects."""
+        cfg = self.config
+        if snvs is not None and not self._columns_apply(candidates,
+                                                        max_position):
+            candidates = snvs.to_candidates() + list(candidates)
+            snvs = None
         # five steps, each a stage, that together tile the call:
         # prepare (collapse, mapping, MNV triage), then coverage, scoring
-        # and filters (process_variants_batch), the callable/report/forced
-        # pass (filters again) and genotype
-        with metrics.stage("allele_calling.prepare"):
-            if self.collapser is not None:
-                candidates = self.collapser.collapse(list(candidates), source,
-                                                     max_position)
-                leftover = self.collapser.not_cleared
-
-            mapped = [map_candidate(cand) for cand in candidates]
-            mnvs = [v for v in mapped if v.category == AlleleCategory.MNV]
-        self.process_variants_batch(source, mnvs)
-        with metrics.stage("allele_calling.prepare"):
-            for variant in mapped:
-                if variant.category == AlleleCategory.MNV:
-                    if self._is_callable(variant):
-                        callable_alleles.append(variant)
-                    else:
-                        failed_mnvs.append(variant)
-                else:
-                    callable_alleles.append(variant)
-
-            spilled = reallocate_failed_mnvs(failed_mnvs, callable_alleles,
-                                             max_position)
-            # spilled alleles re-enter the next region's candidate pool
-            self.spilled_next_region = spilled
-
-            source.add_gapped_mnv_ref_counts(
-                get_ref_support_from_gapped_mnvs(callable_alleles))
-
-            for failed in failed_mnvs:
-                if self._is_forced(failed):
-                    callable_alleles.append(failed)
+        # and filters (process_variants_batch, or _process_columns), the
+        # callable/report/forced pass (filters again) and genotype
+        if snvs is None:
+            callable_alleles = self._prepare(candidates, source, max_position)
+            self.process_variants_batch(source, callable_alleles)
+        else:
+            callable_alleles = self._process_columns(snvs, candidates, source)
 
         by_position: Dict[int, List[CalledAllele]] = {}
-        self.process_variants_batch(source, callable_alleles)
         with metrics.stage("allele_calling.filters"):
             for a in callable_alleles:
                 if self._is_forced(a) and not (self._is_callable(a)
@@ -594,6 +553,173 @@ class AlleleCaller:
                 self._locus_process(alleles_at_pos)
 
             return dict(sorted(by_position.items()))
+
+    def _prepare(self, candidates: List[Candidate], source: AlleleSource,
+                 max_position: Optional[int]) -> List[CalledAllele]:
+        """Collapse, mapping, MNV triage and reallocation, gapped-MNV ref
+        counts: the alleles that go on to be scored."""
+        failed_mnvs: List[CalledAllele] = []
+        callable_alleles: List[CalledAllele] = []
+        with metrics.stage("allele_calling.prepare"):
+            if self.collapser is not None:
+                candidates = self.collapser.collapse(list(candidates), source,
+                                                     max_position)
+
+            mapped = [map_candidate(cand) for cand in candidates]
+            mnvs = [v for v in mapped if v.category == AlleleCategory.MNV]
+        self.process_variants_batch(source, mnvs)
+        with metrics.stage("allele_calling.prepare"):
+            for variant in mapped:
+                if variant.category == AlleleCategory.MNV:
+                    if self._is_callable(variant):
+                        callable_alleles.append(variant)
+                    else:
+                        failed_mnvs.append(variant)
+                else:
+                    callable_alleles.append(variant)
+
+            spilled = reallocate_failed_mnvs(failed_mnvs, callable_alleles,
+                                             max_position)
+            # spilled alleles re-enter the next region's candidate pool
+            self.spilled_next_region = spilled
+
+            source.add_gapped_mnv_ref_counts(
+                get_ref_support_from_gapped_mnvs(callable_alleles))
+
+            for failed in failed_mnvs:
+                if self._is_forced(failed):
+                    callable_alleles.append(failed)
+        return callable_alleles
+
+    # -- SNV candidates as columns -------------------------------------------
+
+    def _columns_apply(self, candidates: List[Candidate],
+                       max_position: Optional[int]) -> bool:
+        """Whether SNV rows may stay columns: no step reads every SNV
+        allele. MNVs do (failed ones are reallocated into SNV alleles,
+        called ones take reference support), so do the block spill past
+        `max_position` and amplicon bias (each SNV's support by
+        amplicon)."""
+        return (max_position is None
+                and self.config.amplicon_bias_filter_threshold is None
+                and not any(c.category == AlleleCategory.MNV
+                            for c in candidates))
+
+    def _collapse_columns(self, snvs: SnvCandidateBatch,
+                          candidates: List[Candidate], source: AlleleSource):
+        """VariantCollapser.collapse over the rows and the objects. With no
+        MNV present an open-ended SNV merges only into an SNV at its own
+        position, and indels only into indels (collapser._can_collapse):
+        so only the rows at positions that hold an open-ended row become
+        Candidates. Their merged supports go back into the columns, and
+        the rows merged away drop out."""
+        open_rows = snvs.open_on_left | snvs.open_on_right
+        rows = np.nonzero(np.isin(snvs.position, snvs.position[open_rows]))[0]
+        objs = [snvs.candidate(i) for i in rows]
+        kept = self.collapser.collapse(objs + list(candidates), source, None)
+        row_of = {id(c): i for c, i in zip(objs, rows)}
+        keep = np.ones(len(snvs), dtype=bool)
+        keep[rows] = False
+        sup = snvs.support_by_direction.copy()
+        wa = snvs.well_anchored_by_direction.copy()
+        rest: List[Candidate] = []
+        for c in kept:
+            i = row_of.get(id(c))
+            if i is None:
+                rest.append(c)
+                continue
+            keep[i] = True
+            sup[i] = c.support_by_direction
+            wa[i] = c.well_anchored_by_direction
+        merged = dataclasses.replace(snvs, support_by_direction=sup,
+                                     well_anchored_by_direction=wa)
+        return merged.take(keep), rest
+
+    def _process_columns(self, snvs: SnvCandidateBatch,
+                         candidates: List[Candidate],
+                         source: AlleleSource) -> List[CalledAllele]:
+        """The object path's prepare, coverage, scoring and filters with
+        the SNV rows held as columns, in the same order and arithmetic.
+        Returns the rows that are callable and reported, or forced, as
+        CalledAlleles, then the objects' alleles: the order the object
+        path scores them in. Callable rows left out count as called, as
+        the object path's loop would count them."""
+        cfg = self.config
+        with metrics.stage("allele_calling.prepare"):
+            if self.collapser is not None:
+                snvs, candidates = self._collapse_columns(snvs, candidates,
+                                                          source)
+            # no MNV: none fails to reallocate, none takes reference support
+            self.spilled_next_region = []
+            objects = [map_candidate(cand) for cand in candidates]
+            n = len(snvs)
+            metrics.count("caller_rows_columnar", n)
+
+        with metrics.stage("allele_calling.coverage"):
+            self._coverage(source, objects)
+            cov_cols = _point_coverage_columns(
+                source, snvs.position,
+                BASE_TO_ALLELE[snvs.ref_base].astype(np.int64))
+            cov_by_dir, cov, num_nc, sum_bq, ref_sup = cov_cols
+            gapped = source.gapped_mnv_ref_counts
+            if gapped:
+                ref_sup = np.maximum(0, ref_sup - np.fromiter(
+                    (gapped.get(int(p), 0) for p in snvs.position),
+                    np.int64, n))
+            sup_by_dir = snvs.support_by_direction
+            sup = sup_by_dir.sum(axis=1)
+
+        with metrics.stage("allele_calling.scoring"):
+            # one batch, rows first, as the object path scores it (the
+            # device threshold counts both)
+            rows = np.nonzero(sup > 0)[0]
+            scored = [a for a in objects if a.allele_support > 0]
+            q = np.zeros(n, np.int64)
+            scores = None
+            if len(rows) or scored:
+                row_cols = (sup, cov, sup_by_dir, cov_by_dir, ref_sup,
+                            num_nc, sum_bq)
+                scores = self._score_columns(*(
+                    np.concatenate([c[rows], o]) for c, o in
+                    zip(row_cols, _allele_columns(scored))))
+                self._set_scores(scored, scores,
+                                 range(len(rows), len(rows) + len(scored)))
+                q[rows] = scores[1][:len(rows)]
+            score_row = np.full(n, -1, np.int64)
+            score_row[rows] = np.arange(len(rows))
+
+        with metrics.stage("allele_calling.filters"):
+            for a in objects:
+                self._apply_filters(a)
+            # _is_callable on the rows; frequency is CalledAllele's f32
+            with np.errstate(divide="ignore", invalid="ignore"):
+                freq = np.minimum(sup.astype(np.float32)
+                                  / cov.astype(np.float32), np.float32(1.0))
+            called = (~((cov != 0) & (freq < np.float32(cfg.min_frequency)))
+                      & (q >= cfg.min_variant_qscore))
+            if not cfg.include_reference_calls:
+                called &= cov >= cfg.min_coverage
+            reported = called.copy()
+            if self.interval_set is not None:
+                for i in np.nonzero(called)[0]:
+                    reported[i] = self.interval_set.contains(
+                        int(snvs.position[i]))
+            forced = snvs.rows_in((p, r, a) for c, p, r, a
+                                  in self.forced_alleles
+                                  if c == snvs.chromosome)
+            keep = reported | forced
+            self.total_num_called += int(np.count_nonzero(called & ~keep))
+            metrics.count("caller_rows_materialized", int(keep.sum()))
+            alleles: List[CalledAllele] = []
+            for i in np.nonzero(keep)[0]:
+                a = map_candidate(snvs.candidate(i))
+                _set_point_coverage(a, cov_cols, i)
+                a.reference_support = int(ref_sup[i])
+                if score_row[i] >= 0:
+                    self._set_scores([a], scores, [int(score_row[i])])
+                self._apply_filters(a)
+                alleles.append(a)
+        return alleles + objects
 
     def _compute_genotype_and_filter(self, alleles: List[CalledAllele],
                                      gt_precomputed: bool = False) -> None:
@@ -640,6 +766,78 @@ class AlleleCaller:
         min_gq = 0 if not non_forced else min(a.genotype_qscore for a in non_forced)
         for a in alleles:
             a.genotype_qscore = min_gq
+
+
+def _point_coverage_columns(source: AlleleSource, pos: np.ndarray,
+                            ref_types: np.ndarray):
+    """CalculateSinglePoint as columns: (coverage by direction [n, 3],
+    total coverage, no-calls, sum of base qualities, reference support
+    before the gapped-MNV adjustment) at 1-based `pos`, `ref_types` being
+    each position's reference AlleleType code."""
+    from pisces_tpu_torch.domain.types import (
+        COVERAGE_CONTRIBUTING_ALLELES, AlleleType,
+    )
+    cov_alleles = np.array([int(x) for x in COVERAGE_CONTRIBUTING_ALLELES])
+    n = len(pos)
+    rows = np.atleast_1d(source.pc.pos_index(pos))
+    counts, quals = source._flat_counts, source._flat_quals
+    safe = np.maximum(rows, 0)
+    if len(counts) == 0:
+        c = np.zeros((n, counts.shape[1] if counts.ndim > 1 else 6, 3),
+                     np.int64)
+        qv = np.zeros_like(c, dtype=np.float64)
+    else:
+        c = counts[safe]
+        qv = quals[safe]
+        miss = rows < 0
+        if miss.any():
+            c = np.where(miss[:, None, None], 0, c)
+            qv = np.where(miss[:, None, None], 0.0, qv)
+    cov_by_dir = c[:, cov_alleles, :].sum(axis=1)   # [n, 3]
+    total = cov_by_dir.sum(axis=1)
+    # base-quality sums folded in the reference's accumulation order
+    # (direction-major, then allele) so f64 rounding matches the scalar
+    # path bit for bit (WINDOW noise model consumes this)
+    qflat = qv[:, cov_alleles, :].transpose(0, 2, 1).reshape(n, -1)
+    sum_bq = np.zeros(n, np.float64)
+    for j in range(qflat.shape[1]):
+        sum_bq += qflat[:, j]
+    num_nc = c[:, int(AlleleType.N), :].sum(axis=1)
+    ref_sup = c[np.arange(n), ref_types, :].sum(axis=1)
+    return cov_by_dir, total, num_nc, sum_bq, ref_sup
+
+
+def _set_point_coverage(a: CalledAllele, cols, i: int) -> None:
+    """An allele's point coverage from row i of _point_coverage_columns
+    (all but the reference support)."""
+    cov_by_dir, total, num_nc, sum_bq, _ = cols
+    t = int(total[i])
+    a.total_coverage = t
+    a.coverage_by_direction = cov_by_dir[i].astype(np.int64)
+    a.num_no_calls = int(num_nc[i])
+    a.sum_of_base_quality = float(sum_bq[i])
+    a.confident_coverage_start = t
+    a.confident_coverage_end = t
+
+
+def _allele_columns(alleles: List[CalledAllele]):
+    """The columns _score_columns takes, from alleles: support, coverage,
+    support and coverage by direction, reference support, no-calls, sum
+    of base qualities."""
+    n = len(alleles)
+
+    def by_dir(attr):
+        if not n:
+            return np.zeros((0, NUM_DIRECTION_TYPES), np.int64)
+        return np.stack([getattr(a, attr) for a in alleles]).astype(np.int64)
+
+    return (np.fromiter((a.allele_support for a in alleles), np.int64, n),
+            np.fromiter((a.total_coverage for a in alleles), np.int64, n),
+            by_dir("support_by_direction"), by_dir("coverage_by_direction"),
+            np.fromiter((a.reference_support for a in alleles), np.int64, n),
+            np.fromiter((a.num_no_calls for a in alleles), np.int64, n),
+            np.fromiter((a.sum_of_base_quality for a in alleles),
+                        np.float64, n))
 
 
 def make_reference_candidates(chrom: str, refseq: np.ndarray, pc: PileupCounts,

@@ -16,7 +16,8 @@ Stitched (XD) reads take their per-base directions from base_dirs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -124,11 +125,73 @@ def find_snv_candidates_vectorized(
     well_anchored = anchor > 0  # min(A-1, altLen-1) = 0 for SNVs
 
     return _aggregate_snv_events(chrom, refseq, m_gpos, m_alt, m_dir,
-                                 open_left, open_right, well_anchored)
+                                 open_left, open_right,
+                                 well_anchored).to_candidates()
+
+
+@dataclass
+class SnvCandidateBatch:
+    """SNV candidates of one chromosome as columns (a struct of arrays).
+
+    Row i is the candidate `ref_base[i]` > `alt_base[i]` at the 1-based
+    `position[i]` (both ASCII codes), with its support and well-anchored
+    support by direction (int64 [n, 3]) and its open-ended flags. Rows are
+    sorted by (position, alt code, open_on_left, open_on_right), the order
+    the keyed aggregation gives. The caller scores the rows as columns and
+    builds objects only for those it reports; `to_candidates` gives the
+    same rows as `Candidate` objects."""
+
+    chromosome: str
+    position: np.ndarray
+    ref_base: np.ndarray
+    alt_base: np.ndarray
+    support_by_direction: np.ndarray
+    well_anchored_by_direction: np.ndarray
+    open_on_left: np.ndarray
+    open_on_right: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.position)
+
+    def take(self, rows) -> "SnvCandidateBatch":
+        """The batch of the given rows (an index array or a row mask)."""
+        return SnvCandidateBatch(
+            self.chromosome, self.position[rows], self.ref_base[rows],
+            self.alt_base[rows], self.support_by_direction[rows],
+            self.well_anchored_by_direction[rows], self.open_on_left[rows],
+            self.open_on_right[rows])
+
+    def candidate(self, i: int) -> Candidate:
+        """Row i as a Candidate holding copies of its supports."""
+        c = Candidate(self.chromosome, int(self.position[i]),
+                      chr(self.ref_base[i]), chr(self.alt_base[i]),
+                      AlleleCategory.SNV,
+                      open_on_left=bool(self.open_on_left[i]),
+                      open_on_right=bool(self.open_on_right[i]))
+        c.support_by_direction = self.support_by_direction[i].copy()
+        c.well_anchored_by_direction = self.well_anchored_by_direction[i].copy()
+        return c
+
+    def to_candidates(self) -> List[Candidate]:
+        return [self.candidate(i) for i in range(len(self))]
+
+    def rows_in(self, alleles: Iterable[Tuple[int, str, str]]) -> np.ndarray:
+        """Row mask of the rows equal to one of the (position, ref, alt)
+        alleles; alleles that are no single-base change match no row."""
+        keys = [_allele_key(pos, ord(ref), ord(alt))
+                for pos, ref, alt in alleles if len(ref) == len(alt) == 1]
+        return np.isin(_allele_key(self.position,
+                                   self.ref_base.astype(np.int64),
+                                   self.alt_base.astype(np.int64)),
+                       np.asarray(keys, dtype=np.int64))
+
+
+def _allele_key(pos, ref, alt):
+    return (pos << 16) | (ref << 8) | alt
 
 
 def _aggregate_snv_events(chrom, refseq, m_gpos, m_alt, m_dir, open_left,
-                          open_right, well_anchored) -> List[Candidate]:
+                          open_right, well_anchored) -> SnvCandidateBatch:
     """Keyed np.unique aggregation of per-base SNV events.
 
     Support tallies are one 2-D scatter-add over (candidate, direction)
@@ -143,22 +206,11 @@ def _aggregate_snv_events(chrom, refseq, m_gpos, m_alt, m_dir, open_left,
     np.add.at(sup2d, (inverse, dir_i), 1)
     wa2d = np.zeros((n_u, NUM_DIRECTION_TYPES), dtype=np.int64)
     np.add.at(wa2d, (inverse[well_anchored], dir_i[well_anchored]), 1)
-    o_r_all = (uniq & 1).astype(bool)
-    o_l_all = ((uniq >> 1) & 1).astype(bool)
-    alt_all = ((uniq >> 2) % 6).astype(np.int64)
     pos_all = ((uniq >> 2) // 6).astype(np.int64)
-    ref_chars = refseq[pos_all - 1]
-    alt_chars = ALLELE_CHARS[alt_all]
-    out: List[Candidate] = []
-    for u_i in range(n_u):
-        c = Candidate(chrom, int(pos_all[u_i]), chr(ref_chars[u_i]),
-                      chr(alt_chars[u_i]), AlleleCategory.SNV,
-                      open_on_left=bool(o_l_all[u_i]),
-                      open_on_right=bool(o_r_all[u_i]))
-        c.support_by_direction = sup2d[u_i]
-        c.well_anchored_by_direction = wa2d[u_i]
-        out.append(c)
-    return out
+    return SnvCandidateBatch(
+        chrom, pos_all, refseq[pos_all - 1],
+        ALLELE_CHARS[((uniq >> 2) % 6).astype(np.int64)], sup2d, wa2d,
+        ((uniq >> 1) & 1).astype(bool), (uniq & 1).astype(bool))
 
 
 def find_indel_candidates(
@@ -269,11 +321,10 @@ def find_indel_candidates(
 
 
 def aggregate_native_mismatches(chrom: str, refseq: np.ndarray, gpos, alt,
-                                dirs, flags) -> List[Candidate]:
+                                dirs, flags) -> SnvCandidateBatch:
     """Aggregate the C++ pileup pass's SNV mismatch events
-    (io/native.native_pileup with reference codes) into Candidates."""
-    if len(gpos) == 0:
-        return []
+    (io/native.native_pileup with reference codes) into the chromosome's
+    SNV candidates, as columns."""
     open_right = (flags & 1) != 0
     open_left = (flags & 2) != 0
     well_anchored = (flags & 4) != 0

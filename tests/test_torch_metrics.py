@@ -3,7 +3,9 @@ spans with their parents, threads and samples; the span buffer's capacity;
 stages on more threads than cores; the interpreter's collections on four
 threads; spans handed across the scheduler's pool and drain threads and the
 window pipeline's workers; the spans a sample records, which must not grow
-with depth; and the spans in -profiledir's trace.json.
+with depth; the spans in -profiledir's trace.json; and the caller's counts
+of SNV rows held as columns and of rows made objects, against the object
+path on the same run.
 
 The workloads are the synthetic messy BAM of pisces_tpu_torch.synthetic:
 two chromosomes of 20 kb with a .bai, at 6,000 and at 24,000 reads (seed
@@ -21,12 +23,15 @@ from concurrent.futures import ThreadPoolExecutor
 import pytest
 
 import pisces_tpu_torch.apps.pisces as torch_app
+import pisces_tpu_torch.calling.caller as torch_caller
+import pisces_tpu_torch.calling.collapser as torch_collapser
 import pisces_tpu_torch.calling.fast_gvcf as torch_fast_gvcf
 from pisces_tpu_torch.apps.pisces import main as torch_main
 from pisces_tpu_torch.io import native
 from pisces_tpu_torch.io.fasta import Genome
 from pisces_tpu_torch.options import PiscesApplicationOptions
-from pisces_tpu_torch.synthetic import write_synthetic_workload
+from pisces_tpu_torch.domain.types import AlleleCategory
+from pisces_tpu_torch.synthetic import write_sites_vcf, write_synthetic_workload
 from pisces_tpu_torch.utils.metrics import SPAN_PID, Metrics, metrics
 
 STEPS = {"allele_calling.prepare", "allele_calling.coverage",
@@ -348,3 +353,74 @@ def test_profiledir_trace_holds_the_spans(workload, tmp_path):
     job_tracks = {events[s.id]["tid"] for s in spans
                   if s.name == "scheduler.job"}
     assert len(job_tracks) == 2 and events[root.id]["tid"] not in job_tracks
+
+
+def _caller_run(bam, genome, out, extra, monkeypatch, objects_only):
+    """One CLI run; returns its counters, the SNV rows left after each
+    collapse and the SNV alleles each call reported (objects_only: with
+    the caller's columnar path switched off)."""
+    after_collapse, reported = [], []
+    collapse = torch_collapser.VariantCollapser.collapse
+    call = torch_caller.AlleleCaller.call
+
+    def spy_collapse(self, *a, **k):
+        kept = collapse(self, *a, **k)
+        after_collapse.append(sum(c.category == AlleleCategory.SNV
+                                  and not c.is_forced for c in kept))
+        return kept
+
+    def spy_call(self, *a, **k):
+        by_position = call(self, *a, **k)
+        reported.append(sum(a.category == AlleleCategory.SNV
+                            for lst in by_position.values() for a in lst))
+        return by_position
+
+    with monkeypatch.context() as m:
+        m.setattr(torch_collapser.VariantCollapser, "collapse", spy_collapse)
+        m.setattr(torch_caller.AlleleCaller, "call", spy_call)
+        if objects_only:
+            m.setattr(torch_caller.AlleleCaller, "_columns_apply",
+                      lambda self, *a: False)
+        _sample(bam, genome, out, extra)
+    return metrics.snapshot()["counters"], after_collapse, reported
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["plain", "forced"])
+def test_caller_counts_its_columnar_rows(workload, tmp_path, monkeypatch,
+                                         forced):
+    """caller_rows_columnar is the SNV rows left after collapse and
+    caller_rows_materialized the SNV alleles reported (called, or forced
+    while not callable), both read off the object path's run of the same
+    sample; candidates_scored is the same on both paths. The forced case
+    forces, on each chromosome, the strongest SNV row and the weakest."""
+    bam, genome = workload["shallow"]
+    extra = ["-backend", "numpy"]
+    if forced:
+        sites = []
+        aggregate = torch_app.aggregate_native_mismatches
+
+        def spy(*a):
+            snvs = aggregate(*a)
+            sup = snvs.support_by_direction.sum(axis=1)
+            for i in (int(sup.argmax()), int(sup.argmin())):
+                sites.append((snvs.chromosome, int(snvs.position[i]),
+                              chr(snvs.ref_base[i]), chr(snvs.alt_base[i])))
+            return snvs
+
+        with monkeypatch.context() as m:
+            m.setattr(torch_app, "aggregate_native_mismatches", spy)
+            _sample(bam, genome, str(tmp_path / "sites"), extra)
+        assert len(sites) == 4
+        extra += ["-ForcedAlleles",
+                  write_sites_vcf(str(tmp_path / "forced.vcf"), sites)]
+    got, _, got_reported = _caller_run(bam, genome, str(tmp_path / "c"),
+                                       extra, monkeypatch, False)
+    want, want_rows, want_reported = _caller_run(
+        bam, genome, str(tmp_path / "o"), extra, monkeypatch, True)
+    assert got_reported == want_reported
+    assert got["caller_rows_columnar"] == sum(want_rows) > 0
+    assert got["caller_rows_materialized"] == sum(want_reported) > 0
+    assert got["caller_rows_materialized"] < got["caller_rows_columnar"]
+    assert "caller_rows_columnar" not in want
+    assert got["candidates_scored"] == want["candidates_scored"] \
+        > got["caller_rows_columnar"]

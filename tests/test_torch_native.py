@@ -242,7 +242,8 @@ def test_native_mismatches_give_the_python_snv_candidates(flows,
     reader, per = flows
     for name, f in per.items():
         _, mm = _pileup(reader, f, track_open_ended)
-        got = aggregate_native_mismatches(name, f["chrom"].sequence, *mm)
+        got = aggregate_native_mismatches(name, f["chrom"].sequence,
+                                          *mm).to_candidates()
         cands, _ = find_candidates_batch(
             name, f["chrom"].sequence, f["batch"], f["keep"], MIN_BQ,
             anchor_size=ANCHOR, track_open_ended=track_open_ended)
@@ -250,8 +251,8 @@ def test_native_mismatches_give_the_python_snv_candidates(flows,
         assert len(got) == len(want) > 10
         assert _table(got, track_open_ended) == _table(want,
                                                        track_open_ended)
-    assert aggregate_native_mismatches("chr1", f["chrom"].sequence,
-                                       *(a[:0] for a in mm)) == []
+    assert len(aggregate_native_mismatches("chr1", f["chrom"].sequence,
+                                           *(a[:0] for a in mm))) == 0
 
 
 @pytest.mark.parametrize("track_open_ended", [True, False])
