@@ -22,11 +22,13 @@ from portbench import gen
 from portbench.reference import compare, scoring
 
 
-def control_numbers(config: dict, traffic: dict, seed: int) -> dict:
-    sample = gen.make_sample(gen.sample_spec(config, traffic), seed)
+def control_numbers(config: dict, traffic: dict, seed: int,
+                    root: str = gen.ROOT) -> dict:
+    layout = gen.load_layout(config, root)
+    sample = layout.make_sample(gen.sample_spec(config, traffic), seed)
     calling = config["calling"]
-    want = compare.expected_body(sample, calling, scoring.F64)
-    got = compare.expected_body(sample, calling, scoring.F32)
+    want = compare.expected_body(sample, layout.counts, calling, scoring.F64)
+    got = compare.expected_body(sample, layout.counts, calling, scoring.F32)
     r = compare.compare(compare.render(got, calling["q_filter"]), want,
                         calling["q_filter"])
     limits = config["limits"]
@@ -44,7 +46,7 @@ def main(argv=None) -> int:
     c = load_cell(args.workload, ROOT)
     for seed in (int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
-        r = control_numbers(c["config"], c["traffic"], seed)
+        r = control_numbers(c["config"], c["traffic"], seed, ROOT)
         r["seed"] = seed
         r["seconds"] = time.perf_counter() - t
         print(json.dumps(r), flush=True)

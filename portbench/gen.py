@@ -2,24 +2,32 @@
 
 Frozen copy, extended, of pisces_tpu_torch/synthetic.py's
 generate_wgs_workload and _write_genome (commit 68f5a3446fa7): the read
-profile and the structured-record BAM assembly are that generator's. This
-copy adds several chromosomes, any read length, somatic SNVs at fixed VFs
-(titration points), germline het and hom SNVs, Q30 base errors on every
-read, and a Picard intervals file; and it deflates BGZF with zlib on a
-thread pool, so it needs nothing of the program.
+profile is that generator's. This copy adds several chromosomes, any read
+length, somatic SNVs at fixed VFs (titration points), germline het and hom
+SNVs, Q30 base errors on every read, and a Picard intervals file; and it
+deflates BGZF with zlib on a thread pool, so it needs nothing of the
+program.
 
-make_sample() draws everything from the seed and returns the read arrays;
-write_sample() writes them. The reference (portbench/reference) takes the
-same arrays, never the program's decode of the BAM.
+A configuration's reads come from its read layout,
+portbench/layouts/<name>.py, named by the `layout` key of its `reads`
+block (single_end where there is none; load_layout). A layout defines
+make_sample(spec, seed), which draws everything from the seed and returns
+the read arrays; write_sample(out_dir, sample, threads), which writes them
+through write_reads, the general record writer (any read length and CIGAR,
+mate fields, tags, extra header lines); and counts(sample, ch,
+min_base_quality), the reference's pileup of the same arrays, never of the
+program's decode of the BAM.
 
-Read classes (CIGAR shapes), as in the copied generator, for read length L
-and h = L // 2: 0 = LM, 1 = 8S(L-8)M, 2 = (L-8)M8S, 3 = (h-2)M2I(L-h)M,
-4 = (h-1)M2D(L-h+1)M.
+This module also holds the single-end read model. Read classes (CIGAR
+shapes), as in the copied generator, for read length L and h = L // 2:
+0 = LM, 1 = 8S(L-8)M, 2 = (L-8)M8S, 3 = (h-2)M2I(L-h)M, 4 = (h-1)M2D(L-h+1)M.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
 import struct
+import sys
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -40,6 +48,7 @@ LINEAR_SHIFT = 14
 PSEUDO_BIN = 37450
 # reads a block of BAM records (the unit of the writer's thread pool)
 RECORD_BLOCK = 125_000
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @dataclass
@@ -221,7 +230,7 @@ def qualities(sample: Sample, ch: ChromReads) -> np.ndarray:
 # writing
 # ---------------------------------------------------------------------------
 
-def _write_genome(gdir: str, chroms: List[ChromReads]) -> None:
+def _write_genome(gdir: str, chroms) -> None:
     os.makedirs(gdir, exist_ok=True)
     gs = []
     for ch in chroms:
@@ -244,9 +253,10 @@ def _write_genome(gdir: str, chroms: List[ChromReads]) -> None:
                 + "\n".join(gs) + "\n</sequenceSizes>")
 
 
-def _header_bytes(chroms: List[ChromReads]) -> bytes:
+def _header_bytes(chroms, header_lines=()) -> bytes:
     text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
-        f"@SQ\tSN:{c.name}\tLN:{len(c.seq)}\n" for c in chroms)
+        f"@SQ\tSN:{c.name}\tLN:{len(c.seq)}\n" for c in chroms) + "".join(
+        line + "\n" for line in header_lines)
     tb = text.encode()
     out = b"BAM\x01" + struct.pack("<i", len(tb)) + tb
     out += struct.pack("<i", len(chroms))
@@ -266,77 +276,139 @@ def _bins(pos0: np.ndarray, end0: np.ndarray) -> np.ndarray:
          9 + (pos0 >> 23), 1 + (pos0 >> 26)], default=0).astype(np.int64)
 
 
-def _records(sample: Sample, ch: ChromReads, ref_id: int, name_base: int,
-             i0: int, i1: int):
-    """Raw BAM records of reads [i0, i1) of a chromosome, in read order, as
-    one uint8 array, and each record's size."""
-    L = sample.read_len
-    _l, _d, spans, cigars = class_layout(L)
-    ch = ChromReads(ch.name, ch.seq, ch.pos0[i0:i1], ch.cls[i0:i1],
-                    ch.rev[i0:i1], ch.dip[i0:i1], ch.reads[i0:i1])
-    name_base += i0
-    n = len(ch.pos0)
-    name_len = 11  # "r%09d" + NUL
-    packed = (L + 1) // 2
-    nib = _NIBBLE_LUT[ch.reads]
-    if L % 2:
-        nib = np.concatenate([nib, np.zeros((n, 1), np.uint8)], axis=1)
-    seq_packed = (nib[:, 0::2] << 4) | nib[:, 1::2]
-    del nib
-    qual = qualities(sample, ch)
-    idx = np.arange(name_base, name_base + n, dtype=np.int64)
-    names = np.empty((n, name_len), np.uint8)
+@dataclass
+class Records:
+    """One chromosome's BAM records in coordinate order, a column a field.
+    The variable-length fields lie flat with [n + 1] offsets: names with
+    their closing NUL, CIGAR operations as (length << 4) | op, bases as
+    ASCII with their qualities under the same offsets, and each read's
+    tags already encoded as BAM aux bytes (see z_tags)."""
+
+    pos0: np.ndarray         # int64 [n] 0-based leftmost mapped base
+    flag: np.ndarray         # uint16 [n]
+    mapq: np.ndarray         # uint8 [n]
+    next_ref: np.ndarray     # int32 [n] mate's reference id, -1 without
+    next_pos: np.ndarray     # int32 [n] mate's 0-based position, -1 without
+    tlen: np.ndarray         # int32 [n] template length
+    names: np.ndarray        # uint8
+    name_off: np.ndarray     # int64 [n + 1]
+    cigar: np.ndarray        # uint32
+    cigar_off: np.ndarray    # int64 [n + 1]
+    seq: np.ndarray          # uint8 ASCII bases
+    qual: np.ndarray         # uint8 base qualities
+    seq_off: np.ndarray      # int64 [n + 1]
+    aux: np.ndarray          # uint8
+    aux_off: np.ndarray      # int64 [n + 1]
+
+    def end0(self) -> np.ndarray:
+        """int64 [n] 0-based end (exclusive) of each read's mapped span."""
+        ops, lens = self.cigar & 0xF, (self.cigar >> 4).astype(np.int64)
+        on_ref = np.isin(ops, (0, 2, 3, 7, 8))
+        return self.pos0 + np.add.reduceat(np.where(on_ref, lens, 0),
+                                           self.cigar_off[:-1])
+
+
+def serial_names(idx: np.ndarray):
+    """(names, offsets): "r%09d" with its NUL for each read number in idx,
+    the names the single-end generator gives."""
+    idx = np.asarray(idx, np.int64)
+    names = np.empty((len(idx), 11), np.uint8)
     names[:, 0] = ord("r")
     names[:, 1:10] = 48 + (idx[:, None] // 10 ** np.arange(8, -1, -1)) % 10
     names[:, 10] = 0
-    flags = np.where(ch.rev, 16, 0).astype(np.uint16)
-    end0 = ch.pos0 + spans[ch.cls]
-    bins = _bins(ch.pos0, end0)
-    n_ops = np.array([len(c) for c in cigars])
-    sizes = 36 + name_len + 4 * n_ops[ch.cls] + packed + L
-    # every record in a row of the widest size, then the rows cut to their
-    # sizes and joined in read order by one boolean gather
-    width = int(sizes.max())
-    rows_all = np.zeros((n, width), np.uint8)
-    for nc in np.unique(n_ops):
-        rec_size = 36 + name_len + 4 * nc + packed + L
-        dt = np.dtype({
-            "names": ["block_size", "ref_id", "pos", "l_name", "mapq", "bin",
-                      "n_cigar", "flag", "l_seq", "next_ref", "next_pos",
-                      "tlen", "name", "cigar", "seq", "qual"],
-            "formats": ["<i4", "<i4", "<i4", "u1", "u1", "<u2", "<u2", "<u2",
-                        "<i4", "<i4", "<i4", "<i4", f"({name_len},)u1",
-                        f"({nc},)<u4", f"({packed},)u1", f"({L},)u1"],
-            "offsets": [0, 4, 8, 12, 13, 14, 16, 18, 20, 24, 28, 32, 36,
-                        36 + name_len, 36 + name_len + 4 * nc,
-                        36 + name_len + 4 * nc + packed],
-            "itemsize": rec_size})
-        sel = np.flatnonzero(n_ops[ch.cls] == nc)
-        if sel.size == 0:
+    return names.reshape(-1), np.arange(len(idx) + 1, dtype=np.int64) * 11
+
+
+def z_tags(tag: str, values: List[str], which: np.ndarray):
+    """(aux bytes, [n + 1] offsets) of one Z-typed tag a read, read i's
+    value being values[which[i]]."""
+    enc = [tag.encode() + b"Z" + v.encode() + b"\x00" for v in values]
+    table = np.zeros((len(enc), max(map(len, enc))), np.uint8)
+    for row, e in zip(table, enc):
+        row[:len(e)] = np.frombuffer(e, np.uint8)
+    lens = np.array([len(e) for e in enc], np.int64)[which]
+    flat = table[which][np.arange(table.shape[1])[None, :] < lens[:, None]]
+    return flat, np.concatenate([[0], np.cumsum(lens)])
+
+
+def _interleave(parts):
+    """Each read's bytes of every part in turn: parts are (flat uint8, [n]
+    lengths) pairs. Returns the flat bytes and their [n + 1] offsets.
+
+    Each part goes as a [n, its widest] block into a row a read, at the
+    read's column (a slice copy for each distinct column); a part's
+    padding lies under the parts after it or past the row's end, which the
+    last gather leaves out."""
+    lens = np.stack([np.asarray(ln, np.int64) for _d, ln in parts])
+    n = lens.shape[1]
+    sizes = lens.sum(axis=0)
+    col = np.cumsum(lens, axis=0) - lens
+    widths = lens.max(axis=1, initial=0)
+    rows = np.zeros((n, int((col + widths[:, None]).max(initial=0))),
+                    np.uint8)
+    for (data, ln), c, w in zip(parts, col, widths.tolist()):
+        if n == 0 or w == 0:
             continue
-        recs = np.zeros(sel.size, dt)
-        recs["block_size"] = rec_size - 4
-        recs["ref_id"] = ref_id
-        recs["pos"] = ch.pos0[sel]
-        recs["l_name"] = name_len
-        recs["mapq"] = 60
-        recs["bin"] = bins[sel].astype(np.uint16)
-        recs["n_cigar"] = nc
-        recs["flag"] = flags[sel]
-        recs["l_seq"] = L
-        recs["next_ref"] = -1
-        recs["next_pos"] = -1
-        recs["name"] = names[sel]
-        for c, cig in enumerate(cigars):
-            if len(cig) == nc:
-                recs["cigar"][ch.cls[sel] == c] = np.array(
-                    [(ln << 4) | op for op, ln in cig], np.uint32)
-        recs["seq"] = seq_packed[sel]
-        recs["qual"] = qual[sel]
-        rows_all[sel, :rec_size] = recs.view(np.uint8).reshape(sel.size,
-                                                               rec_size)
-    raw = rows_all[np.arange(width)[None, :] < sizes[:, None]]
-    return raw, sizes
+        if (ln == w).all():
+            block = data.reshape(n, w)
+        else:
+            block = np.zeros((n, w), np.uint8)
+            block[np.arange(w)[None, :] < ln[:, None]] = data
+        c0 = int(c[0])
+        if (c == c0).all():
+            rows[:, c0:c0 + w] = block
+            continue
+        for u in np.unique(c).tolist():
+            sel = np.flatnonzero(c == u)
+            rows[sel, u:u + w] = block[sel]
+    out = rows[np.arange(rows.shape[1])[None, :] < sizes[:, None]]
+    return out, np.concatenate([[0], np.cumsum(sizes)])
+
+
+_FIXED = np.dtype({
+    "names": ["block_size", "ref_id", "pos", "l_name", "mapq", "bin",
+              "n_cigar", "flag", "l_seq", "next_ref", "next_pos", "tlen"],
+    "formats": ["<i4", "<i4", "<i4", "u1", "u1", "<u2", "<u2", "<u2", "<i4",
+                "<i4", "<i4", "<i4"]})
+
+
+def _assemble(rec: Records, bins: np.ndarray, ref_id: int, i0: int,
+              i1: int):
+    """Raw BAM records of reads [i0, i1), as one uint8 array, and each
+    record's size."""
+    def cut(data, off):
+        return data[off[i0]:off[i1]], np.diff(off[i0:i1 + 1])
+    name, l_name = cut(rec.names, rec.name_off)
+    cigar, n_cigar = cut(rec.cigar, rec.cigar_off)
+    seq, l_seq = cut(rec.seq, rec.seq_off)
+    qual, _l = cut(rec.qual, rec.seq_off)
+    aux, l_aux = cut(rec.aux, rec.aux_off)
+    n = i1 - i0
+    # 4-bit bases, a zero nibble after each read of odd length
+    nib = _NIBBLE_LUT[seq]
+    if (l_seq % 2).any():
+        nib = _interleave([(nib, l_seq),
+                           (np.zeros(n, np.uint8), l_seq % 2)])[0]
+    packed = (l_seq + 1) // 2
+    fixed = np.zeros(n, _FIXED)
+    fixed["block_size"] = 32 + l_name + 4 * n_cigar + packed + l_seq + l_aux
+    fixed["ref_id"] = ref_id
+    fixed["pos"] = rec.pos0[i0:i1]
+    fixed["l_name"] = l_name
+    fixed["mapq"] = rec.mapq[i0:i1]
+    fixed["bin"] = bins[i0:i1]
+    fixed["n_cigar"] = n_cigar
+    fixed["flag"] = rec.flag[i0:i1]
+    fixed["l_seq"] = l_seq
+    fixed["next_ref"] = rec.next_ref[i0:i1]
+    fixed["next_pos"] = rec.next_pos[i0:i1]
+    fixed["tlen"] = rec.tlen[i0:i1]
+    raw, off = _interleave([
+        (fixed.view(np.uint8), np.full(n, _FIXED.itemsize)),
+        (name, l_name), (cigar.astype("<u4").view(np.uint8), 4 * n_cigar),
+        ((nib[0::2] << 4) | nib[1::2], packed), (qual, l_seq),
+        (aux, l_aux)])
+    return raw, np.diff(off)
 
 
 def _bgzf_block(chunk: bytes, level: int) -> bytes:
@@ -399,33 +471,66 @@ def _ref_index(voff, bins, pos0, end0, clen):
     return b"".join(out)
 
 
+def single_end_records(sample: Sample, ch: ChromReads,
+                       first: int) -> Records:
+    """A chromosome's reads as BAM records (unpaired, MAPQ 60, no tags),
+    named from read number `first` on."""
+    L = sample.read_len
+    n = len(ch.pos0)
+    cigars = class_layout(L)[3]
+    table = np.zeros((len(cigars), 3), np.uint32)
+    for c, cig in enumerate(cigars):
+        table[c, :len(cig)] = [(ln << 4) | op for op, ln in cig]
+    n_ops = np.array([len(c) for c in cigars])[ch.cls]
+    names, name_off = serial_names(np.arange(first, first + n))
+    return Records(
+        pos0=ch.pos0, flag=np.where(ch.rev, 16, 0).astype(np.uint16),
+        mapq=np.full(n, 60, np.uint8), next_ref=np.full(n, -1, np.int32),
+        next_pos=np.full(n, -1, np.int32), tlen=np.zeros(n, np.int32),
+        names=names, name_off=name_off,
+        cigar=table[ch.cls][np.arange(3)[None, :] < n_ops[:, None]],
+        cigar_off=np.concatenate([[0], np.cumsum(n_ops)]),
+        seq=ch.reads.reshape(-1), qual=qualities(sample, ch).reshape(-1),
+        seq_off=np.arange(n + 1, dtype=np.int64) * L,
+        aux=np.zeros(0, np.uint8), aux_off=np.zeros(n + 1, np.int64))
+
+
 def write_sample(out_dir: str, sample: Sample, threads: int = 8) -> dict:
-    """Write genome/, sample.bam, sample.bam.bai and intervals.picard
-    (each chromosome's whole span) under out_dir; returns their paths."""
+    """Write the single-end sample's genome/, sample.bam, sample.bam.bai
+    and intervals.picard under out_dir; returns their paths."""
+    firsts = np.cumsum([0] + [len(ch.pos0) for ch in sample.chroms])
+    return write_reads(out_dir, sample.chroms,
+                       [single_end_records(sample, ch, int(f))
+                        for ch, f in zip(sample.chroms, firsts)], threads)
+
+
+def write_reads(out_dir: str, chroms, records: List[Records],
+                threads: int = 8, header_lines=()) -> dict:
+    """Write genome/ (chroms: each with .name and .seq), sample.bam (one
+    Records a chromosome; header_lines follow the @SQ lines),
+    sample.bam.bai and intervals.picard (each chromosome's whole span)
+    under out_dir; returns their paths and the BAM's size."""
     os.makedirs(out_dir, exist_ok=True)
     gdir = os.path.join(out_dir, "genome")
-    _write_genome(gdir, sample.chroms)
-    header = _header_bytes(sample.chroms)
+    _write_genome(gdir, chroms)
+    header = _header_bytes(chroms, header_lines)
+    ends = [rec.end0() for rec in records]
+    bins = [_bins(rec.pos0, end0) for rec, end0 in zip(records, ends)]
     # records in blocks of reads on a thread pool (numpy's copies and
     # gathers release the GIL), joined in order
-    jobs, base = [], 0
-    for ref_id, ch in enumerate(sample.chroms):
-        n = len(ch.pos0)
-        jobs += [(ref_id, ch, base, i0, min(i0 + RECORD_BLOCK, n))
-                 for i0 in range(0, n, RECORD_BLOCK)]
-        base += n
+    jobs = [(ref_id, i0, min(i0 + RECORD_BLOCK, len(rec.pos0)))
+            for ref_id, rec in enumerate(records)
+            for i0 in range(0, len(rec.pos0), RECORD_BLOCK)]
     with ThreadPoolExecutor(max_workers=threads) as ex:
-        blocks = list(ex.map(lambda j: _records(sample, j[1], j[0], j[2],
-                                                j[3], j[4]), jobs))
+        blocks = list(ex.map(lambda j: _assemble(records[j[0]], bins[j[0]],
+                                                 *j), jobs))
     parts, per_ref = [header], []
     at = len(header)
-    _l, _d, spans, _c = class_layout(sample.read_len)
-    for ref_id, ch in enumerate(sample.chroms):
+    for ref_id, (ch, rec) in enumerate(zip(chroms, records)):
         sizes = [b[1] for j, b in zip(jobs, blocks) if j[0] == ref_id]
         sizes = np.concatenate(sizes) if sizes else np.zeros(0, np.int64)
         ustart = at + np.concatenate([[0], np.cumsum(sizes)])
-        end0 = ch.pos0 + spans[ch.cls]
-        per_ref.append((ustart, _bins(ch.pos0, end0), ch.pos0, end0,
+        per_ref.append((ustart, bins[ref_id], rec.pos0, ends[ref_id],
                         len(ch.seq)))
         at = int(ustart[-1])
     parts += [b[0].tobytes() for b in blocks]
@@ -435,7 +540,7 @@ def write_sample(out_dir: str, sample: Sample, threads: int = 8) -> dict:
     bam = os.path.join(out_dir, "sample.bam")
     with open(bam, "wb") as f:
         f.write(data)
-    index = [b"BAI\x01", struct.pack("<i", len(sample.chroms))]
+    index = [b"BAI\x01", struct.pack("<i", len(chroms))]
     for ustart, bins, pos0, end0, clen in per_ref:
         blk, within = np.divmod(ustart, BGZF_CHUNK)
         voff = (block_off[blk] << 16) | within
@@ -446,9 +551,9 @@ def write_sample(out_dir: str, sample: Sample, threads: int = 8) -> dict:
     intervals = os.path.join(out_dir, "intervals.picard")
     with open(intervals, "w") as f:
         f.write("@HD\tVN:1.4\n")
-        for ch in sample.chroms:
+        for ch in chroms:
             f.write(f"@SQ\tSN:{ch.name}\tLN:{len(ch.seq)}\n")
-        for ch in sample.chroms:
+        for ch in chroms:
             f.write(f"{ch.name}\t1\t{len(ch.seq)}\t+\t{ch.name}_target\n")
     return {"bam": bam, "genome": gdir, "intervals": intervals,
             "bam_bytes": len(data)}
@@ -464,21 +569,41 @@ def sample_spec(config: dict, traffic: dict, part: dict = None) -> dict:
     return spec
 
 
-def generate_inputs(config: dict, traffic: dict, seed: int,
-                    out_dir: str) -> dict:
+def load_layout(config: dict, root: str = ROOT):
+    """The module portbench/layouts/<name>.py under root of the
+    configuration's read layout (`layout` in its reads block, single_end
+    where it names none)."""
+    name = config["reads"].get("layout", "single_end")
+    path = os.path.join(root, "portbench", "layouts", name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no read layout {name!r}: {path}")
+    mod_name = f"portbench_layout_{name}"
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # dataclasses look their module up in sys.modules
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def generate_inputs(config: dict, traffic: dict, seed: int, out_dir: str,
+                    root: str = ROOT) -> dict:
     """Write the cell's sample and its warm-up sample under out_dir (run in
     a child process, so that the arrays are not the measured process's
     memory); returns their paths and read counts. A traffic whose
     `warmup` is "sample" warms up on the sample itself."""
+    layout = load_layout(config, root)
     threads = min(8, os.cpu_count() or 1)
-    sample = make_sample(sample_spec(config, traffic), seed)
-    paths = write_sample(os.path.join(out_dir, "sample"), sample, threads)
+    sample = layout.make_sample(sample_spec(config, traffic), seed)
+    paths = layout.write_sample(os.path.join(out_dir, "sample"), sample,
+                                threads)
     paths["n_reads"] = sample.n_reads
     del sample
     if traffic["warmup"] == "sample":
         return {"sample": paths, "warmup": paths}
-    warm = make_sample(sample_spec(config, traffic, traffic["warmup"]),
-                       seed + 1)
-    wpaths = write_sample(os.path.join(out_dir, "warmup"), warm, threads)
+    warm = layout.make_sample(
+        sample_spec(config, traffic, traffic["warmup"]), seed + 1)
+    wpaths = layout.write_sample(os.path.join(out_dir, "warmup"), warm,
+                                 threads)
     wpaths["n_reads"] = warm.n_reads
     return {"sample": paths, "warmup": wpaths}

@@ -1,7 +1,8 @@
 """The VCF/gVCF body the plain reference expects for a sample.
 
-From the reference's own pileup counts (portbench/reference/pileup.py) and
-the scoring arithmetic (portbench/reference/scoring.py), following the
+From the reference's own pileup counts by forward, reverse and stitched
+direction (the configuration's read layout's counts, portbench/layouts)
+and the scoring arithmetic (portbench/reference/scoring.py), following the
 reference caller's rules for the deployments of portbench/configs:
 
 - SNV candidates: every alt base seen at a position. One is callable when
@@ -28,12 +29,21 @@ from portbench.reference import scoring as S
 from portbench.reference.scoring import Precision
 
 
-def _snv_candidates(counts: np.ndarray, seq: np.ndarray):
+def three_directions(by_dir: np.ndarray) -> np.ndarray:
+    """Counts by direction [.., 3] (forward, reverse, stitched) as they
+    are; [.., 2] forward/reverse with a zero stitched column."""
+    if by_dir.shape[-1] == 3:
+        return by_dir
+    return np.concatenate([by_dir, np.zeros(by_dir.shape[:-1] + (1,),
+                                            by_dir.dtype)], axis=-1)
+
+
+def _snv_candidates(c: np.ndarray, seq: np.ndarray):
     """(pos, alt allele code) of every alt base seen, in genome order, and
-    the per-position arrays the scoring needs."""
+    the per-position arrays the scoring needs; c is counts[1:] in three
+    directions."""
     ref_code = S.BASE_TO_ALLELE[seq].astype(np.int64)          # 0-based pos
-    c = counts[1:]                                             # [L, 6, 2]
-    cov_by_dir = c[:, list(S.COVERAGE_ALLELES), :].sum(axis=1)  # [L, 2]
+    cov_by_dir = c[:, list(S.COVERAGE_ALLELES), :].sum(axis=1)  # [L, 3]
     ar = np.arange(len(seq))
     ref_by_dir = c[ar, ref_code, :]
     alt_tot = c[:, :4, :].sum(axis=2)                          # [L, 4]
@@ -42,18 +52,13 @@ def _snv_candidates(counts: np.ndarray, seq: np.ndarray):
     return pos0, alt, cov_by_dir, ref_by_dir
 
 
-def _with_stitched(by_dir: np.ndarray) -> np.ndarray:
-    """[.., 2] forward/reverse -> [.., 3] with a zero stitched column."""
-    return np.concatenate([by_dir, np.zeros(by_dir.shape[:-1] + (1,),
-                                            by_dir.dtype)], axis=-1)
-
-
 def score_snvs(counts, seq, cfg: dict, pr: Precision) -> Dict[str, np.ndarray]:
-    """Every SNV candidate of a chromosome with its scores and filters."""
-    pos0, alt, cov_by_dir, ref_by_dir = _snv_candidates(counts, seq)
-    c = counts[1:]
-    sup_by_dir = _with_stitched(c[pos0, alt, :])
-    cov3 = _with_stitched(cov_by_dir[pos0])
+    """Every SNV candidate of a chromosome with its scores and filters;
+    counts [len(seq) + 1, 6, 2 or 3] by direction (three_directions)."""
+    c = three_directions(counts)[1:]
+    pos0, alt, cov_by_dir, ref_by_dir = _snv_candidates(c, seq)
+    sup_by_dir = c[pos0, alt, :]
+    cov3 = cov_by_dir[pos0]
     support = sup_by_dir.sum(axis=1)
     total = cov3.sum(axis=1)
     ref_sup = ref_by_dir[pos0].sum(axis=1)
@@ -128,12 +133,14 @@ def somatic_variant_lines(snv: dict, seq_str: str, cfg: dict,
 
 
 def reference_lines(counts, seq, cfg: dict, pr: Precision) -> dict:
-    """Columnar reference-line fields at every position 1..len(seq)."""
+    """Columnar reference-line fields at every position 1..len(seq); the
+    tuples (reference support and coverage, three directions each) are the
+    score_tuples kernel's."""
     ref_code = S.BASE_TO_ALLELE[seq].astype(np.int64)
-    c = counts[1:]
+    c = three_directions(counts)[1:]
     ar = np.arange(len(seq))
-    sup_by_dir = _with_stitched(c[ar, ref_code, :])
-    cov_by_dir = _with_stitched(c[:, list(S.COVERAGE_ALLELES), :].sum(axis=1))
+    sup_by_dir = c[ar, ref_code, :]
+    cov_by_dir = c[:, list(S.COVERAGE_ALLELES), :].sum(axis=1)
     support = sup_by_dir.sum(axis=1)
     total = cov_by_dir.sum(axis=1)
     noise = cfg["noise_q"]

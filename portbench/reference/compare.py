@@ -17,28 +17,28 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from portbench import gen
 from portbench.reference import calls
-from portbench.reference.pileup import chrom_counts
 from portbench.reference.scoring import GT_STRINGS, Precision
 
 # printed with 3 decimals: half a unit of the last digit, and round-off
 VF_SLACK = 0.0005 + 1e-6
 
 
-def expected_body(sample: gen.Sample, cfg: dict, pr: Precision) -> list:
-    """Per chromosome: (name, variant lines by position, reference-line
-    arrays or None). cfg is the configuration's "calling" block."""
+def expected_body(sample, counts, cfg: dict, pr: Precision) -> list:
+    """Per chromosome of the sample: (name, sequence, variant lines by
+    position, reference-line arrays or None). counts is the read layout's
+    counts(sample, ch, min_base_quality); cfg the configuration's "calling"
+    block."""
     out = []
     for ch in sample.chroms:
-        counts = chrom_counts(sample, ch, cfg["min_bq"])
+        counts_ch = counts(sample, ch, cfg["min_bq"])
         seq_str = ch.seq.tobytes().decode()
-        snv = calls.score_snvs(counts, ch.seq, cfg, pr)
+        snv = calls.score_snvs(counts_ch, ch.seq, cfg, pr)
         if cfg["genotyper"] == "diploid":
             var = calls.diploid_lines(snv, seq_str, cfg, pr)
         else:
             var = calls.somatic_variant_lines(snv, seq_str, cfg, pr)
-        ref = calls.reference_lines(counts, ch.seq, cfg, pr) \
+        ref = calls.reference_lines(counts_ch, ch.seq, cfg, pr) \
             if cfg["gvcf"] else None
         out.append((ch.name, ch.seq, var, ref))
     return out

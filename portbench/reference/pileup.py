@@ -1,4 +1,5 @@
-"""Pileup counts of the plain reference, from the generated read arrays.
+"""Pileup counts of the plain reference, from the generated single-end read
+arrays (the single_end layout's counts, with an empty stitched direction).
 
 Per 1-based position, allele (A, G, C, T, N, deletion) and direction
 (forward, reverse): every mapped base of every read counts once, as N

@@ -17,9 +17,11 @@ import math
 from typing import List, Tuple
 
 import numpy as np
-import torch
-from scipy import special as sp
-from scipy import stats as sps
+
+# scipy and torch are imported where they are used: the read layouts take
+# this module's constants into the generator's child process, which runs
+# while the measured process starts, and importing them there cost that
+# set-up about 10 s on the card's machine
 
 # pisces_tpu_torch/domain/types.py
 A, G, C, T, N, DEL = range(6)
@@ -46,14 +48,18 @@ class Precision:
 
     def gammaincc(self, a, x):
         if self.f is np.float64:
+            from scipy import special as sp
             return sp.gammaincc(a, x)
+        import torch
         return torch.special.gammaincc(
             torch.from_numpy(np.asarray(a, np.float32)),
             torch.from_numpy(np.asarray(x, np.float32))).numpy()
 
     def gammaln(self, x):
         if self.f is np.float64:
+            from scipy import special as sp
             return sp.gammaln(x)
+        import torch
         return torch.special.gammaln(
             torch.from_numpy(np.asarray(x, np.float32))).numpy()
 
@@ -220,6 +226,7 @@ def _poisson_logpmf(k, lam, pr: Precision):
 
 def _binom_logpmf(k, n, p, pr: Precision):
     if pr.f is np.float64:
+        from scipy import stats as sps
         return float(sps.binom.logpmf(k, n, p))
     f = np.float32
     if k < 0 or k > n:

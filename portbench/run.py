@@ -4,14 +4,16 @@
         --trace <0|1>
 
 Everything is found by name: the cell in BENCHMARK.json, its configuration
-in portbench/configs/<config>.json, its traffic in
-portbench/traffic/<traffic>.json, each per-layer metric's reader in
-portbench/layer_metrics/<metric>.py.
+in portbench/configs/<config>.json, the configuration's read layout in
+portbench/layouts/<layout>.py (single_end unless its reads block names
+one), its traffic in portbench/traffic/<traffic>.json, each per-layer
+metric's reader in portbench/layer_metrics/<metric>.py.
 
 A run:
 1. set-up (setup_s): checks the cards, imports the program, generates the
    sample (and, where the traffic asks for one, a smaller warm-up sample
-   of the same configuration) in a child process (portbench/gen.py),
+   of the same configuration) in a child process (the layout's
+   make_sample and write_sample, portbench/gen.py),
    builds the program's host library and kernels (into
    pisces_tpu_torch/build/ inside the checkout; only the first run of a
    checkout builds), opens the card and runs the warm-up sample, or the
@@ -23,10 +25,10 @@ A run:
    end and counts. reads_per_s is all reads over all of the window's wall
    time; peak_rss_gib the process's peak resident memory in the window;
 3. after the window: the last sample's VCF body against the plain
-   reference (portbench/reference), which works from the generator's read
-   arrays; with --trace 1 the window ran under torch.profiler (the card's
-   activity alone), and the per-layer metrics are read from its trace, the
-   program's stage totals and counters.
+   reference (portbench/reference), which works from the layout's counts
+   of the generated read arrays; with --trace 1 the window ran under
+   torch.profiler (the card's activity alone), and the per-layer metrics
+   are read from its trace, the program's stage totals and counters.
 
 The result is the last line of standard output; the numbers compared,
 each with its limit, are the last lines of standard error and the last key
@@ -186,9 +188,9 @@ class PeakRss:
 # the run
 # ---------------------------------------------------------------------------
 
-def _generate(config, traffic, seed, out_dir, result_path):
+def _generate(config, traffic, seed, out_dir, result_path, root):
     from portbench import gen
-    paths = gen.generate_inputs(config, traffic, seed, out_dir)
+    paths = gen.generate_inputs(config, traffic, seed, out_dir, root)
     with open(result_path, "w") as f:
         json.dump(paths, f)
 
@@ -276,7 +278,8 @@ def _run(seed, seconds, trace, device, bench, cell, config, traffic, work,
     import torch
     result_path = os.path.join(work, "inputs.json")
     child = mp.get_context("spawn").Process(
-        target=_generate, args=(config, traffic, seed, work, result_path))
+        target=_generate,
+        args=(config, traffic, seed, work, result_path, root))
     child.start()
     try:
         from pisces_tpu_torch.apps import pisces as app
@@ -383,7 +386,7 @@ def _run(seed, seconds, trace, device, bench, cell, config, traffic, work,
     if device == "cuda":
         torch.cuda.empty_cache()
     judged = judge(config, traffic, seed, last_out, launches, failed,
-                   device)
+                   device, root)
 
     e2e_values = {"reads_per_s": reads / window_s,
                   "peak_rss_gib": peak_rss / GIB, "setup_s": setup_s}
@@ -423,14 +426,17 @@ def _run(seed, seconds, trace, device, bench, cell, config, traffic, work,
 
 
 def judge(config: dict, traffic: dict, seed: int, out_dir: str,
-          launches: dict, failed: int, device: str = "cuda") -> dict:
+          launches: dict, failed: int, device: str = "cuda",
+          root: str = ROOT) -> dict:
     """The last sample's body against the plain reference, and the
     run's other checks: each {name: {value, limit}}."""
     from portbench import gen
     from portbench.reference import compare, scoring
     limits = config["limits"]
-    sample = gen.make_sample(gen.sample_spec(config, traffic), seed)
-    expected = compare.expected_body(sample, config["calling"], scoring.F64)
+    layout = gen.load_layout(config, root)
+    sample = layout.make_sample(gen.sample_spec(config, traffic), seed)
+    expected = compare.expected_body(sample, layout.counts,
+                                     config["calling"], scoring.F64)
     names = [n for n in os.listdir(out_dir) if n.endswith(".vcf")] \
         if out_dir and os.path.isdir(out_dir) else []
     body = compare.read_body(os.path.join(out_dir, names[0])) if names else ""

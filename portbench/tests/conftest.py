@@ -46,7 +46,7 @@ def make_root(dest: str) -> str:
     """A copy of BENCHMARK.json and portbench's data files under dest, with
     the small cells in place of the real ones (the code stays the repo's)."""
     os.makedirs(os.path.join(dest, "portbench"), exist_ok=True)
-    for sub in ("configs", "traffic", "layer_metrics"):
+    for sub in ("configs", "traffic", "layer_metrics", "layouts"):
         shutil.copytree(os.path.join(ROOT, "portbench", sub),
                         os.path.join(dest, "portbench", sub))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
@@ -75,3 +75,24 @@ def make_root(dest: str) -> str:
 @pytest.fixture
 def small_root(tmp_path):
     return make_root(str(tmp_path / "root"))
+
+
+# a read layout that the tests add by files alone: stitched and paired
+# reads of two lengths, mate fields, an XD tag on every read and the
+# stitcher's @PG line (portbench/tests/layouts/paired_xd.py)
+PAIRED_READS = {"layout": "paired_xd", "stitched_share": 0.5,
+                "profile": {"base_error": 0.001, "low_q_tail": 0.2,
+                            "tail_len": 15, "low_q": 12, "high_q": 30},
+                "somatic": {"vafs": [0.05, 0.1], "sites_per_vaf": 3}}
+PAIRED_TRAFFIC = {"why": "two 6 kb chromosomes at about 160x",
+                  "chroms": ["p1", "p2"], "chrom_len": 6000,
+                  "reads_per_chrom": 8000, "reads": 16000, "depth": 156,
+                  "warmup": "sample"}
+
+
+def add_paired_layout(root: str) -> str:
+    """Copy the paired layout into root's layouts; returns its name."""
+    shutil.copy(os.path.join(ROOT, "portbench", "tests", "layouts",
+                             "paired_xd.py"),
+                os.path.join(root, "portbench", "layouts"))
+    return PAIRED_READS["layout"]

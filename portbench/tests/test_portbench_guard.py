@@ -35,12 +35,16 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    ref = os.path.join(HERE, "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            names = _imports(os.path.join(ref, name))
+    """The reference and the read layouts (the tests' own among them)
+    import nothing of the program or JAX."""
+    for sub in ("reference", "layouts", os.path.join("tests", "layouts")):
+        d = os.path.join(HERE, sub)
+        files = [n for n in os.listdir(d) if n.endswith(".py")]
+        assert files, sub
+        for name in files:
+            names = _imports(os.path.join(d, name))
             assert not names & {"pisces_tpu_torch", "pisces_tpu", "jax",
-                                "jaxlib", "flax"}, name
+                                "jaxlib", "flax"}, (sub, name)
     for name in ("gen.py", "roofline.py", "control.py"):
         assert "pisces_tpu_torch" not in _imports(os.path.join(HERE, name))
 
@@ -51,3 +55,29 @@ def test_no_benchmark_file_imports_jax():
             if name.endswith(".py"):
                 names = _imports(os.path.join(dirpath, name))
                 assert not names & {"pisces_tpu", "jax", "jaxlib", "flax"}
+
+
+def test_read_layouts_load_without_torch_or_scipy(small_root):
+    """The generator's child process loads the layout: no layout imports
+    torch or scipy, whose import would run beside the measured process's
+    set-up."""
+    import subprocess
+    import sys
+
+    from portbench.tests.conftest import add_paired_layout
+    add_paired_layout(small_root)
+    names = sorted(n[:-3] for n in os.listdir(os.path.join(
+        small_root, "portbench", "layouts")) if n.endswith(".py"))
+    assert {"single_end", "paired_xd"} <= set(names)
+    code = (
+        "import sys\n"
+        "from portbench import gen\n"
+        "for name in sys.argv[2:]:\n"
+        "    gen.load_layout({'reads': {'layout': name}}, sys.argv[1])\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}\n"
+        "             & {'torch', 'scipy'}))\n")
+    out = subprocess.run([sys.executable, "-c", code, small_root] + names,
+                         capture_output=True, text=True,
+                         cwd=os.path.dirname(HERE), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -119,3 +119,116 @@ def test_shallow_snv_is_called_only_with_gvcf():
         snv = calls.score_snvs(counts, seq, dict(cfg, gvcf=gvcf), S.F64)
         assert snv["pos"].tolist() == [6] and snv["q"].tolist() == [20]
         assert snv["callable"].tolist() == want
+
+
+def _random_counts(seed, length, directions):
+    """Seeded pileup counts [length + 1, 6, directions] over a random
+    reference: a depth a position and direction (some directions empty),
+    alt alleles from none to half of it, a few N and deletions."""
+    rng = np.random.default_rng(seed)
+    seq = gen.BASES[rng.integers(0, 4, length)]
+    depth = rng.integers(0, 400, (length, directions)) \
+        * (rng.random((length, directions)) < 0.85)
+    share = rng.choice([0.0, 0.003, 0.02, 0.08, 0.5], (length, 6, 1))
+    counts = np.zeros((length + 1, 6, directions), np.int64)
+    counts[1:] = rng.binomial(depth[:, None, :], share * np.array(
+        [1, 1, 1, 1, 0.1, 0.1])[None, :, None])
+    ref = S.BASE_TO_ALLELE[seq]
+    counts[1 + np.arange(length), ref, :] = depth
+    return seq, counts
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 9])
+def test_zero_stitched_column_gives_the_same_scores(seed):
+    """Two-direction counts and the same counts with a zero stitched
+    column score bit for bit alike: candidates and reference lines."""
+    from portbench.reference import calls
+    cfg = _calling()
+    seq, c2 = _random_counts(seed, 3000, 2)
+    c3 = np.concatenate([c2, np.zeros(c2.shape[:2] + (1,), np.int64)], 2)
+    assert calls.three_directions(c3) is c3
+    for fn in (calls.score_snvs, calls.reference_lines):
+        a, b = fn(c2, seq, cfg, S.F64), fn(c3, seq, cfg, S.F64)
+        assert list(a) == list(b)
+        for k in a:
+            assert _bits(a[k]) == _bits(b[k]), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 11, 3000000007])
+def test_three_direction_scores_match_the_ports_host_f64(seed):
+    """On counts with stitched bases, the reference's Q, strand bias, GT
+    and GQ of every SNV candidate and reference position equal those of
+    the program's host float64 scoring (pisces_tpu_torch.ops.stats) on
+    the same support and coverage by direction."""
+    from pisces_tpu_torch.ops import stats
+
+    from portbench.reference import calls
+    cfg = _calling()
+    seq, counts = _random_counts(seed, 3000, 3)
+    assert counts[..., 2].sum() > 0
+    noise, max_q = cfg["noise_q"], cfg["max_q"]
+    cov_all = counts[:, list(S.COVERAGE_ALLELES), :].sum(axis=1)
+
+    def port(sup, cov, is_ref, ref_sup):
+        total = cov.sum(axis=1)
+        q = stats.compute_variant_qscores(sup.sum(axis=1), total, max_q,
+                                          noise)
+        sb = stats.compute_strand_bias(sup, cov, noise, cfg["min_freq"],
+                                       cfg["sb_accept"])
+        freq = S.frequency(sup.sum(axis=1), total)
+        gt = stats.somatic_genotypes(is_ref, freq,
+                                     S.frequency(ref_sup, total), total,
+                                     cfg["min_freq"], cfg["min_dp"])
+        gq = stats.somatic_genotype_qscores(gt, q, freq, total,
+                                            cfg["min_freq"], 0,
+                                            cfg["max_gq"])
+        return q, sb, gt, gq
+
+    snv = calls.score_snvs(counts, seq, cfg, S.F64)
+    pos = snv["pos"]
+    sup = counts[pos, snv["alt"], :]
+    ref_sup = counts[pos, S.BASE_TO_ALLELE[seq[pos - 1]], :].sum(axis=1)
+    q, sb, gt, gq = port(sup, cov_all[pos], np.zeros(len(pos), bool),
+                         ref_sup)
+    assert len(pos) > 1000 and (sup[:, 2] > 0).sum() > 100
+    assert np.array_equal(snv["q"], q)
+    assert _bits(snv["gatk"]) == _bits(sb["gatk_bias_score"])
+    assert np.array_equal(snv["sb_ok"], sb["bias_acceptable"])
+    lines = calls.somatic_variant_lines(snv, seq.tobytes().decode(), cfg,
+                                        S.F64)
+    called = np.flatnonzero(snv["callable"])
+    assert called.size > 100
+    for i in called.tolist():
+        line = next(d for d in lines[int(pos[i])]
+                    if d["alt"] == S.ALLELE_CHARS[int(snv["alt"][i])])
+        assert line["gt"] == S.GT_STRINGS[int(gt[i])]
+        assert line["gq"] == gq[i]
+
+    ref = calls.reference_lines(counts, seq, cfg, S.F64)
+    at = np.arange(1, len(seq) + 1)
+    rsup = counts[at, S.BASE_TO_ALLELE[seq], :]
+    q, sb, gt, gq = port(rsup, cov_all[1:], np.ones(len(seq), bool),
+                         rsup.sum(axis=1))
+    q = np.where(rsup.sum(axis=1) > 0, q, 0)
+    gatk = np.where(rsup.sum(axis=1) > 0, sb["gatk_bias_score"], 0.0)
+    assert np.array_equal(ref["qual"], q)
+    assert _bits(ref["sb"]) == _bits(np.clip(gatk, -100.0, 0.0))
+    assert np.array_equal(ref["gt"], gt)
+    assert np.array_equal(ref["gq"], gq)
+    assert np.array_equal(ref["tuples"], np.concatenate(
+        [rsup, cov_all[1:]], axis=1))
+
+
+def _calling():
+    import json
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with open(os.path.join(root, "portbench", "configs",
+                           "somatic_panel.json")) as f:
+        return json.load(f)["calling"]

@@ -135,6 +135,65 @@ def test_new_config_traffic_and_metric_by_files_alone(small_root):
     assert set(r["metrics"]) == {"reads_per_s", "peak_rss_gib", "setup_s"}
 
 
+def test_new_read_layout_by_files_alone(small_root):
+    """A later change adds a read layout (stitched and paired reads of two
+    lengths, mate fields, an XD tag on every read, the stitcher's @PG line)
+    with a configuration, a traffic mix and a cell, as new files and
+    BENCHMARK.json entries, editing no file; the reference carries the
+    stitched direction, and the check sees it."""
+    from portbench import gen
+    from portbench.reference import compare, scoring
+    from portbench.tests.conftest import (PAIRED_READS, PAIRED_TRAFFIC,
+                                          add_paired_layout)
+    add_paired_layout(small_root)
+    pb = os.path.join(small_root, "portbench")
+    with open(os.path.join(pb, "configs", "somatic_panel.json")) as f:
+        conf = json.load(f)
+    conf["name"] = "stitched_panel"
+    conf["reads"] = PAIRED_READS
+    with open(os.path.join(pb, "configs", "stitched_panel.json"), "w") as f:
+        json.dump(conf, f)
+    with open(os.path.join(pb, "traffic", "small_pairs.json"), "w") as f:
+        json.dump(PAIRED_TRAFFIC, f)
+    with open(os.path.join(small_root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "stitched_panel", "source": "x",
+                             "file": "portbench/configs/stitched_panel.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "pairs.panel",
+                               "config": "stitched_panel",
+                               "traffic": "small_pairs", "chips": 1,
+                               "why": "x"})
+    next(m for m in bench["end_to_end"]
+         if m["name"] == "reads_per_s")["workloads"].append("pairs.panel")
+    with open(os.path.join(small_root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    r = _run(small_root, "pairs.panel")
+    assert r["correct"] is True, r["checks"]
+    assert r["checks"]["lines_compared"]["value"] >= 2 * 6000
+    assert set(r["metrics"]) == {"reads_per_s", "peak_rss_gib", "setup_s"}
+    # the reference's pileup holds stitched bases; counted as forward ones
+    # they give another body, which the run's check would refuse
+    c = run.load_cell("pairs.panel", small_root)
+    layout = gen.load_layout(c["config"], small_root)
+    sample = layout.make_sample(gen.sample_spec(c["config"], c["traffic"]),
+                                SEED)
+    assert layout.counts(sample, sample.chroms[0], 20)[..., 2].sum() > 0
+
+    def as_forward(s, ch, min_bq):
+        x = layout.counts(s, ch, min_bq).copy()
+        x[..., 0] += x[..., 2]
+        x[..., 2] = 0
+        return x
+    cal, limits = c["config"]["calling"], c["config"]["limits"]
+    want = compare.expected_body(sample, layout.counts, cal, scoring.F64)
+    got = compare.expected_body(sample, as_forward, cal, scoring.F64)
+    r = compare.compare(compare.render(got, cal["q_filter"]), want,
+                        cal["q_filter"])
+    assert (r["line_mismatches"] > limits["line_mismatches"]
+            or r["sb_gap"] > limits["sb_gap"]), r
+
+
 @pytest.mark.parametrize("cell", ["small.panel", "small.wgs"])
 def test_control_is_not_correct(small_root, cell):
     c = run.load_cell(cell, small_root)
