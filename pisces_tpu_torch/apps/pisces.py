@@ -41,7 +41,7 @@ from pisces_tpu_torch.domain.types import (
 from pisces_tpu_torch.io.bam import filter_batch
 from pisces_tpu_torch.io.fasta import ChrReference, Genome
 from pisces_tpu_torch.io.native import (
-    NativeBamReader, native_pileup, open_bam,
+    NativeBamReader, has_collapsed_tags, native_pileup, open_bam,
 )
 from pisces_tpu_torch.io.vcf_write import VcfWriter, VcfWriterConfig
 from pisces_tpu_torch.calling.caller import (
@@ -141,25 +141,39 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
     keep = filter_batch(batch, bf.minimum_map_quality, bf.remove_duplicates,
                         bf.only_use_proper_pairs)
 
-    base_dirs = None
+    # stitched (XD) directions: a native batch's come from its C++ decode,
+    # a Python batch's a read at a time
+    base_dirs = del_dirs = None
     if source_is_stitched and batch.xd_tags is not None:
-        from pisces_tpu_torch.pileup.directions import batch_base_directions
-        with metrics.stage("pileup"):
-            base_dirs = batch_base_directions(batch, keep)
+        with metrics.stage("xd_directions"):
+            if batch._from_native_handle:
+                base_dirs, del_dirs, n_stitched = reader.xd_directions()
+            else:
+                from pisces_tpu_torch.pileup.directions import (
+                    batch_base_directions, has_stitched_segment,
+                )
+                base_dirs = batch_base_directions(batch, keep)
+                n_stitched = sum(map(has_stitched_segment, batch.xd_tags))
+        metrics.count("reads_stitched", n_stitched)
 
     # the native flow needs a batch from the native handle and no per-read
-    # candidate objects; the mesh scores from the read events, so
-    # -MeshDevices keeps the Python events on the natively decoded batch
+    # candidate objects (MNVs, amplicons, read-collapsed counts); the mesh
+    # scores from the read events, so -MeshDevices keeps the Python events
+    # on the natively decoded batch
     counts_native = batch._from_native_handle and mesh is None
     if (counts_native and not options.call_mnvs and not track_amplicons
-            and batch.extra_tags is None):
+            and not options.vcf_writing_parameters.report_rc_counts
+            and not has_collapsed_tags(batch.extra_tags)):
         # C++ pass: events, count scatter, scoring tuples and SNV mismatch
-        # extraction in one go; indels come from the CIGAR walk before it
+        # extraction in one go; indels come from the CIGAR walk before it.
+        # No read takes the per-read state machine (its counter reads 0)
+        metrics.count("reads_state_machine", 0)
         with metrics.stage("candidates"):
             indels = find_indel_candidates(
                 chrom.name, chrom.sequence, batch, keep,
                 bf.minimum_base_call_quality, options.tracked_anchor_size,
-                track_open_ended=options.collapse, base_dirs=base_dirs)
+                track_open_ended=options.collapse, base_dirs=base_dirs,
+                del_dirs=del_dirs)
         anchor_positions = candidate_anchor_positions(indels)
         with metrics.stage("pileup"):
             pc, mm = native_pileup(reader, keep, bf.minimum_base_call_quality,

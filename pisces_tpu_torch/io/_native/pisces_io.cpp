@@ -647,6 +647,138 @@ const uint8_t* bam_col_tag_present(void* h) {
   return ((BamFile*)h)->tag_present.data();
 }
 
+// Stitched per-base directions of the decoded batch (valid after
+// bam_decode_tags with parse_tags=1): Read.CreateSequencedBaseDirectionMap
+// as pileup/directions.sequenced_direction_map computes it. Each read's XD
+// string ("20F30S21R": F 0, R 1, S 2) expands to one direction an expanded
+// CIGAR position; read-consuming ops take their entries, D and N consume
+// entries only, and a read op that runs past the XD's end takes its last
+// direction (forward without one), over the Python slice the map pads.
+// A read without an XD, or with an empty one, takes its strand.
+//   base_dirs: int8 [total bases], one direction a sequenced base;
+//   del_dirs:  int8 [total cigar ops], on each D op of a read with an XD
+//              the direction CandidateVariantFinder.GetSupportDirection
+//              gives its deletion (directions.support_direction with the
+//              expanded maps: the first and last expanded entries between
+//              the two flanking bases, the later one where the first is
+//              stitched), -1 on every other op.
+// Returns the number of reads whose XD holds a stitched segment.
+int64_t bam_xd_directions(void* h, int8_t* base_dirs, int8_t* del_dirs) {
+  auto* bf = (BamFile*)h;
+  const size_t n = bf->ref_id.size();
+  if (bf->tag_present.size() != n) return -1;
+  const std::string& blob = bf->tag_blobs[0];
+  const std::vector<int64_t>& toff = bf->tag_offs[0];
+  std::vector<int8_t> expanded;   // one direction an expanded position
+  std::vector<int8_t> dm;         // the read's direction map
+  std::vector<int64_t> exp_of;    // expanded index of each sequenced base
+  int64_t n_stitched = 0;
+  for (size_t i = 0; i < n; i++) {
+    const int64_t co = bf->cigar_off[i], ce = bf->cigar_off[i + 1];
+    const int64_t so = bf->seq_off[i], se = bf->seq_off[i + 1];
+    for (int64_t c = co; c < ce; c++) del_dirs[c] = -1;
+    const int64_t xs = toff[i], xe = toff[i + 1];
+    if (!(bf->tag_present[i] & 1) || xe <= xs) {
+      memset(base_dirs + so, (bf->flag[i] & 0x10) ? 1 : 0, se - so);
+      continue;
+    }
+    // the expanded positions the map can read: the read-consuming ops'
+    // bases (the map's own length L) and the D and N entries
+    int64_t L = 0, need = 0;
+    for (int64_t c = co; c < ce; c++) {
+      const uint8_t op = bf->cigar_ops[c];
+      if (op < 9 && kConsumesRead[op]) L += bf->cigar_lens[c];
+      if (op < 9 && (kConsumesRead[op] || op == 2 || op == 3))
+        need += bf->cigar_lens[c];
+    }
+    // the XD's <digits><F|R|S> segments (re.findall(r"(\d+)([FRS])")),
+    // expanded as far as the CIGAR reaches; E counts every entry, pad is
+    // the last one's direction
+    expanded.clear();
+    bool stitched = false;
+    int64_t E = 0;
+    int8_t pad = 0;
+    for (int64_t p = xs; p < xe;) {
+      if (blob[p] < '0' || blob[p] > '9') { p++; continue; }
+      int64_t q = p, len = 0;
+      while (q < xe && blob[q] >= '0' && blob[q] <= '9') {
+        len = std::min<int64_t>(len * 10 + (blob[q] - '0'), INT64_C(1) << 40);
+        q++;
+      }
+      if (q < xe && (blob[q] == 'F' || blob[q] == 'R' || blob[q] == 'S')) {
+        const int8_t d = blob[q] == 'F' ? 0 : blob[q] == 'R' ? 1 : 2;
+        if (len > 0) {
+          stitched |= d == 2;
+          pad = d;
+          const int64_t room = need - (int64_t)expanded.size();
+          expanded.insert(expanded.end(), (size_t)std::min(len, room), d);
+          E += len;
+        }
+        q++;
+      }
+      p = q;
+    }
+    n_stitched += stitched;
+    dm.assign((size_t)L, 0);
+    exp_of.assign((size_t)L, 0);
+    int64_t seq_i = 0, exp_i = 0;
+    for (int64_t c = co; c < ce; c++) {
+      const uint8_t op = bf->cigar_ops[c];
+      const int64_t ln = bf->cigar_lens[c];
+      if (op < 9 && kConsumesRead[op]) {
+        const int64_t k = std::min(ln, E - exp_i);
+        if (k > 0)
+          memcpy(dm.data() + seq_i, expanded.data() + exp_i, (size_t)k);
+        if (k < ln) {
+          // out[seq_i + k : seq_i + ln] = pad, a Python slice: a negative
+          // start counts from the map's end
+          int64_t a = seq_i + k, b = seq_i + ln;
+          if (a < 0) a = std::max<int64_t>(a + L, 0);
+          b = std::min(b, L);
+          if (a < b) memset(dm.data() + a, pad, (size_t)(b - a));
+        }
+        for (int64_t j = 0; j < ln; j++) exp_of[seq_i + j] = exp_i + j;
+        seq_i += ln;
+        exp_i += ln;
+      } else if (op == 2 || op == 3) {
+        exp_i += ln;
+      }
+    }
+    const int64_t m = std::min(L, se - so);
+    if (m > 0) memcpy(base_dirs + so, dm.data(), (size_t)m);
+    if (m < se - so)
+      memset(base_dirs + so + m, (bf->flag[i] & 0x10) ? 1 : 0, se - so - m);
+    // deletions: support_direction(DELETION, dm, start, 1, expanded, exp_of)
+    int64_t start = 0;
+    for (int64_t c = co; c < ce; c++) {
+      const uint8_t op = bf->cigar_ops[c];
+      if (op == 2 && L > 0) {
+        const int64_t left = start - 1, right = start, last = L - 1;
+        int8_t d;
+        if (right == 0) {
+          d = dm[0];
+        } else if (left == last) {
+          d = dm[last];
+        } else {
+          const int64_t li = exp_of[left] + 1, ri = exp_of[right] - 1;
+          int8_t sd, ed;
+          if (li >= 0 && li < E && ri >= 0 && ri < E) {
+            sd = expanded[li];
+            ed = expanded[ri];
+          } else {
+            sd = dm[left];
+            ed = dm[right];
+          }
+          d = sd == 2 ? ed : sd;
+        }
+        del_dirs[c] = d;
+      }
+      if (op < 9 && kConsumesRead[op]) start += bf->cigar_lens[c];
+    }
+  }
+  return n_stitched;
+}
+
 // ---------------------------------------------------------------------------
 // Columnar gVCF reference-line rendering (fast_gvcf.format_reference_lines
 // hot tail: one line per covered locus; the QUAL..SAMPLE tail is memoized

@@ -27,6 +27,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections.abc import Sequence
 from typing import Optional
 
 import numpy as np
@@ -221,6 +222,10 @@ def _bind(lib) -> None:
         fn.restype = ctypes.POINTER(ct)
         fn.argtypes = [ctypes.c_void_p]
     lib.bam_col_tag_off.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bam_xd_directions.restype = ctypes.c_int64
+    lib.bam_xd_directions.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int8),
+                                      ctypes.POINTER(ctypes.c_int8)]
     lib.bam_col_name_off.restype = ctypes.POINTER(ctypes.c_int64)
     lib.bam_col_name_off.argtypes = [ctypes.c_void_p]
     lib.bam_col_name_blob.restype = ctypes.c_void_p
@@ -357,6 +362,102 @@ def _as_view(ptr, n, dtype):
     return arr
 
 
+class _TagColumn(Sequence):
+    """A per-read tag column of a natively decoded batch: each read's item
+    is built when it is read. Equal to any sequence of the same items, and
+    a list where it is added to one."""
+
+    def _item(self, i: int):
+        raise NotImplementedError
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._item(j) for j in range(*i.indices(len(self)))]
+        i = int(i)
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError("tag column index out of range")
+        return self._item(i)
+
+    def __eq__(self, other):
+        return isinstance(other, Sequence) and list(self) == list(other)
+
+    def __add__(self, other):
+        return list(self) + list(other)
+
+    def __radd__(self, other):
+        return list(other) + list(self)
+
+    __hash__ = None
+
+
+class TagStrings(_TagColumn):
+    """One Z-typed tag: the read's string (ASCII, bad bytes replaced), or
+    None where the read has none."""
+
+    def __init__(self, blob: bytes, off: np.ndarray, present: np.ndarray,
+                 bit: int):
+        self._blob = blob
+        self._off = off
+        self._has = (present & bit) != 0
+
+    def __len__(self) -> int:
+        return len(self._has)
+
+    def _item(self, i: int):
+        if not self._has[i]:
+            return None
+        return self._blob[self._off[i]:self._off[i + 1]].decode(
+            "ascii", errors="replace")
+
+    def __iter__(self):
+        blob, off = self._blob, self._off.tolist()
+        for i, has in enumerate(self._has.tolist()):
+            yield (blob[off[i]:off[i + 1]].decode("ascii", errors="replace")
+                   if has else None)
+
+
+class TagDicts(_TagColumn):
+    """The read's tag dict (XD, XN, XR, XU strings; XV, XW values).
+    `collapsed` says whether any read carries a read-collapsed tag (XR,
+    XU, XV or XW)."""
+
+    _COLLAPSED_BITS = 4 | 8 | 16 | 32 | 64
+
+    def __init__(self, present: np.ndarray, strings: dict, xv: np.ndarray,
+                 xw: np.ndarray):
+        self._present = present
+        self._strings = strings
+        self._xv = xv
+        self._xw = xw
+        self.collapsed = bool((present & self._COLLAPSED_BITS).any())
+
+    def __len__(self) -> int:
+        return len(self._present)
+
+    def _item(self, i: int):
+        p = int(self._present[i])
+        tags = {}
+        for name in ("XD", "XN", "XR", "XU"):
+            v = self._strings[name][i]
+            if v is not None:
+                tags[name] = v
+        if p & 16:
+            tags["XV"] = int(self._xv[i])
+        if p & 32:
+            tags["XW"] = int(self._xw[i])
+        if p & 64:  # a Z-typed XW overrides an int XW (parser order)
+            tags["XW"] = self._strings["XW"][i]
+        return tags
+
+
+def has_collapsed_tags(extra_tags: Optional[TagDicts]) -> bool:
+    """Whether a natively decoded batch's tag column (ReadBatch.extra_tags)
+    carries a read-collapsed tag (XR, XU, XV or XW) on any read."""
+    return extra_tags is not None and extra_tags.collapsed
+
+
 class NativeBamReader:
     """Native counterpart of io.bam.BamReader with the same fetch()
     contract. By default the whole file inflates in C++ threads at open,
@@ -465,51 +566,47 @@ class NativeBamReader:
         return batch
 
     def _build_tag_lists(self, n: int):
-        """xd/xn/extra tag lists from the native tag columns (the Python
-        reader's _parse_string_tags contract)."""
+        """xd/xn/extra tag columns of the native tag decode, with the Python
+        reader's _parse_string_tags contract (a string or None a read, a
+        dict a read), each built a read at a time when a caller reads it:
+        a batch whose reads no caller looks at builds none."""
         lib = self._lib
         if n == 0:
             return [], [], []
         present = _as_array(lib.bam_col_tag_present(self._h), n, np.uint8)
-        offs = {}
-        blobs = {}
-        for slot, name in enumerate(("xd", "xn", "xr", "xu", "xw_s")):
+        strings = {}
+        # C++ slots and presence bits: XD 1, XN 2, XR 4, XU 8, Z-typed XW 64
+        for slot, (name, bit) in enumerate((("XD", 1), ("XN", 2), ("XR", 4),
+                                            ("XU", 8), ("XW", 64))):
             o = _as_array(lib.bam_col_tag_off(self._h, slot), n + 1, np.int64)
-            offs[name] = o
-            blobs[name] = (ctypes.string_at(
-                lib.bam_col_tag_blob(self._h, slot), int(o[-1]))
-                if o[-1] else b"")
+            blob = (ctypes.string_at(lib.bam_col_tag_blob(self._h, slot),
+                                     int(o[-1])) if o[-1] else b"")
+            strings[name] = TagStrings(blob, o, present, bit)
         xv = _as_array(lib.bam_col_xv_val(self._h), n, np.int32)
         xw = _as_array(lib.bam_col_xw_val(self._h), n, np.int32)
+        return (strings["XD"], strings["XN"],
+                TagDicts(present, strings, xv, xw))
 
-        def s(name, i):
-            o = offs[name]
-            return blobs[name][o[i]:o[i + 1]].decode("ascii",
-                                                     errors="replace")
-
-        xd_tags, xn_tags, extra = [], [], []
-        for i, p in enumerate(present.tolist()):
-            tags = {}
-            xd = s("xd", i) if p & 1 else None
-            xn = s("xn", i) if p & 2 else None
-            if xd is not None:
-                tags["XD"] = xd
-            if xn is not None:
-                tags["XN"] = xn
-            if p & 4:
-                tags["XR"] = s("xr", i)
-            if p & 8:
-                tags["XU"] = s("xu", i)
-            if p & 16:
-                tags["XV"] = int(xv[i])
-            if p & 32:
-                tags["XW"] = int(xw[i])
-            if p & 64:  # Z-typed XW overrides an int XW (parser order)
-                tags["XW"] = s("xw_s", i)
-            xd_tags.append(xd)
-            xn_tags.append(xn)
-            extra.append(tags)
-        return xd_tags, xn_tags, extra
+    def xd_directions(self):
+        """(base_dirs, del_dirs, n_stitched) of the handle's last fetch,
+        which parsed its tags: the stitched (XD) direction of every
+        sequenced base (int8, one a base of the batch; a read without an
+        XD takes its strand), the direction of each deletion op of a read
+        with an XD (int8, one a CIGAR op, -1 elsewhere), and the number of
+        reads whose XD holds a stitched segment. C++ (bam_xd_directions),
+        the values of pileup/directions.batch_base_directions and
+        support_direction with the expanded maps."""
+        lib = self._lib
+        if self._n_decoded is None:
+            raise ValueError(f"{self.path}: nothing fetched yet")
+        base_dirs = np.empty(int(lib.bam_total_bases(self._h)), np.int8)
+        del_dirs = np.empty(int(lib.bam_total_cigar(self._h)), np.int8)
+        n_stitched = lib.bam_xd_directions(
+            self._h, base_dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+            del_dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        if n_stitched < 0:
+            raise ValueError(f"{self.path}: the last fetch parsed no tags")
+        return base_dirs, del_dirs, int(n_stitched)
 
     def fetch_region(self, ref_id: int, beg0: int, end0: int,
                      parse_tags: bool = False, as_views: bool = False,

@@ -26,6 +26,7 @@ from pisces_tpu_torch.domain.types import (
 )
 from pisces_tpu_torch.io.bam import OP_D, OP_I, OP_M, OP_S, ReadBatch
 from pisces_tpu_torch.pileup.events import read_directions
+from pisces_tpu_torch.utils.metrics import metrics
 
 ALLELE_CHARS = np.frombuffer(b"AGCTN-", dtype=np.uint8)
 _N = int(AlleleType.N)
@@ -351,21 +352,18 @@ def find_candidates_batch(
         from pisces_tpu_torch.pileup.candidates_fast import (
             find_indel_candidates, find_snv_candidates_vectorized,
         )
-        base_dirs = None
-        if batch.xd_tags is not None and any(batch.xd_tags):
-            from pisces_tpu_torch.pileup.directions import batch_base_directions
-            base_dirs = batch_base_directions(batch, keep)
+        # an untagged batch (both readers set extra_tags wherever they set
+        # xd_tags): each read's bases take its strand direction
         snvs = find_snv_candidates_vectorized(
-            chrom, refseq, batch, keep, min_bq, anchor_size, track_open_ended,
-            base_dirs)
+            chrom, refseq, batch, keep, min_bq, anchor_size, track_open_ended)
         indels = find_indel_candidates(
-            chrom, refseq, batch, keep, min_bq, anchor_size, track_open_ended,
-            base_dirs)
+            chrom, refseq, batch, keep, min_bq, anchor_size, track_open_ended)
         return snvs + indels, None
     refseq_codes = BASE_TO_ALLELE[refseq]
     dirs = read_directions(batch)
     agg = CandidateAggregator(track_open_ended)
     kept = np.nonzero(keep)[0]
+    metrics.count("reads_state_machine", len(kept))
     for i in kept:
         s, e = batch.cigar_off[i], batch.cigar_off[i + 1]
         qs, qe = batch.seq_off[i], batch.seq_off[i + 1]

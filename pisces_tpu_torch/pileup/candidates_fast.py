@@ -41,9 +41,9 @@ def find_snv_candidates_vectorized(
     min_bq: int,
     anchor_size: int = 5,
     track_open_ended: bool = True,
-    base_dirs: Optional[np.ndarray] = None,
 ) -> List[Candidate]:
-    """SNV candidates over the whole batch in one pass."""
+    """SNV candidates over the whole batch in one pass (untagged reads:
+    each base takes its read's strand direction)."""
     refseq_codes = BASE_TO_ALLELE[refseq]
     ex = expand_batch(batch, keep)
     dirs = read_directions(batch)
@@ -69,10 +69,7 @@ def find_snv_candidates_vectorized(
     m_read = read_idx[mismatch]
     m_alt = read_code[mismatch]
 
-    if base_dirs is not None:
-        m_dir = base_dirs[m_seq_idx].astype(np.int64)
-    else:
-        m_dir = dirs[m_read].astype(np.int64)
+    m_dir = dirs[m_read].astype(np.int64)
 
     start1 = batch.pos.astype(np.int64) + 1
     end1 = batch.end_pos.astype(np.int64) + 1
@@ -222,8 +219,15 @@ def find_indel_candidates(
     anchor_size: int = 5,
     track_open_ended: bool = True,
     base_dirs: Optional[np.ndarray] = None,
+    del_dirs: Optional[np.ndarray] = None,
 ) -> List[Candidate]:
-    """Insertion/deletion candidates per I/D cigar op (sparse loop)."""
+    """Insertion/deletion candidates per I/D cigar op (sparse loop).
+
+    A stitched read's (XD) insertion takes its support direction from
+    base_dirs, and its deletion from del_dirs, the direction of the
+    expanded XD entries between the deletion's flanking bases (the state
+    machine's rule); both come from NativeBamReader.xd_directions, and
+    together."""
     from pisces_tpu_torch.pileup.directions import support_direction
     dirs = read_directions(batch)
     agg: Dict[tuple, Candidate] = {}
@@ -247,8 +251,8 @@ def find_indel_candidates(
         pos1 = int(start1[i])
         read_cursor = 0
         ref_cursor0 = pos1 - 1
-        per_read: List[Tuple[Candidate, int]] = []
-        for op, ln in zip(ops, lens):
+        per_read: List[Tuple[Candidate, int, int]] = []
+        for oi, (op, ln) in enumerate(zip(ops, lens)):
             ln = int(ln)
             if op == OP_I:
                 if not (ref_cursor0 - 1 >= ref_len or ref_cursor0 == 0):
@@ -258,7 +262,7 @@ def find_indel_candidates(
                             .tobytes().decode()
                         c = Candidate(chrom, ref_cursor0, ref_base,
                                       ref_base + added, AlleleCategory.INSERTION)
-                        per_read.append((c, read_cursor))
+                        per_read.append((c, read_cursor, s + oi))
             elif op == OP_D:
                 if not (ref_cursor0 + ln >= ref_len) and len(quals) > 0:
                     after = quals[read_cursor] if read_cursor < len(quals) \
@@ -269,7 +273,7 @@ def find_indel_candidates(
                             .tobytes().decode()
                         c = Candidate(chrom, ref_cursor0, ref_bases,
                                       ref_bases[0], AlleleCategory.DELETION)
-                        per_read.append((c, read_cursor))
+                        per_read.append((c, read_cursor, s + oi))
             if op in (OP_M, OP_I, OP_S, 7, 8):
                 read_cursor += ln
             if op in (OP_M, OP_D, 3, 7, 8):
@@ -286,7 +290,7 @@ def find_indel_candidates(
             l = ops[-2]
         max_pos = int(end1[i])
         xd = batch.xd_tags[i] if batch.xd_tags is not None else None
-        for c, start_read in per_read:
+        for c, start_read, op_at in per_read:
             if track_open_ended:
                 if f == OP_I and c.category == AlleleCategory.INSERTION \
                         and c.position == pos1 - 1:
@@ -301,9 +305,11 @@ def find_indel_candidates(
                         and c.position == max_pos:
                     c.open_on_right = True
             if xd and base_dirs is not None:
-                d = support_direction(int(c.category),
-                                      base_dirs[qs:batch.seq_off[i + 1]],
-                                      start_read, len(c.alt_allele))
+                d = (int(del_dirs[op_at])
+                     if c.category == AlleleCategory.DELETION else
+                     support_direction(int(c.category),
+                                       base_dirs[qs:batch.seq_off[i + 1]],
+                                       start_read, len(c.alt_allele)))
             else:
                 d = int(dirs[i])
             alt_len = (len(c.alt_allele)

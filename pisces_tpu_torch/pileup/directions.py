@@ -61,9 +61,18 @@ def sequenced_direction_map(xd: str, cigar_ops: np.ndarray,
     return out
 
 
+def has_stitched_segment(xd: Optional[str]) -> bool:
+    """Whether an XD string holds a stitched (S) segment."""
+    return bool(xd) and any(n > 0 and d == _DIR_CODE["S"]
+                            for n, d in parse_xd(xd))
+
+
 def batch_base_directions(batch: ReadBatch, keep: np.ndarray) -> np.ndarray:
     """Per-sequenced-base direction codes for the whole batch, aligned with
-    batch.seq; reads without an XD tag get their strand direction."""
+    batch.seq; reads without an XD tag get their strand direction. A read
+    at a time in Python, for batches of the Python reader: the native
+    reader's batches take NativeBamReader.xd_directions, the same values
+    from its C++ decode."""
     out = np.empty(len(batch.seq), dtype=np.int8)
     read_dirs = np.where((batch.flag & FLAG_REVERSE) != 0,
                          np.int8(DirectionType.REVERSE),
