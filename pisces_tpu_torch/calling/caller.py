@@ -24,8 +24,9 @@ if TYPE_CHECKING:
     from pisces_tpu_torch.parallel.sharding import Mesh
 
 from pisces_tpu_torch.domain.types import (
-    BASE_TO_ALLELE, NUM_DIRECTION_TYPES, AlleleCategory, FilterType, Genotype,
-    NoiseModel, PloidyModel, StrandBiasModel,
+    BASE_TO_ALLELE, NUM_DIRECTION_TYPES, AlleleCategory, AlleleType,
+    CoverageMethod, FilterType, Genotype, NoiseModel, PloidyModel,
+    StrandBiasModel,
 )
 from pisces_tpu_torch.options import PiscesApplicationOptions
 from pisces_tpu_torch.calling.alleles import CalledAllele, map_candidate
@@ -38,7 +39,9 @@ from pisces_tpu_torch.calling.repeats import (
 )
 from pisces_tpu_torch.calling.source import AlleleSource
 from pisces_tpu_torch.ops import stats
-from pisces_tpu_torch.ops.coverage import compute_coverage
+from pisces_tpu_torch.ops.coverage import (
+    SpanningColumns, spanning_coverage_columns,
+)
 from pisces_tpu_torch.pileup.candidates import Candidate
 from pisces_tpu_torch.pileup.candidates_fast import SnvCandidateBatch
 from pisces_tpu_torch.pileup.counts import PileupCounts
@@ -138,6 +141,10 @@ class CallerConfig:
         )
 
 
+_SPANNING = (AlleleCategory.DELETION, AlleleCategory.MNV,
+             AlleleCategory.INSERTION)
+
+
 class _SbSliceView:
     """Per-allele view into a batched strand-bias result dict (the
     StrandBiasFileWriter reads sb[group][stat][0] per allele)."""
@@ -182,7 +189,8 @@ class AlleleCaller:
     # loop; this build phases the same math so the batch of candidates hits
     # the vectorized/fused kernels once:
     #   phase 1  coverage reconciliation (point coverage gathered columnar
-    #            for SNV/reference alleles; spanning semantics per-allele)
+    #            for SNV/reference alleles, spanning coverage in one column
+    #            pass over the indels and MNVs)
     #   phase 2  q-score + strand bias over the whole batch (host f64
     #            vectorized, or the torch device for large batches)
     #   phase 3  amplicon bias + filters (host, per-allele string logic)
@@ -208,53 +216,41 @@ class AlleleCaller:
         point: List[CalledAllele] = []
         spanning: List[CalledAllele] = []
         for a in alleles:
-            if a.category in (AlleleCategory.DELETION, AlleleCategory.MNV,
-                              AlleleCategory.INSERTION):
+            if a.category in _SPANNING:
                 spanning.append(a)
             else:
                 point.append(a)
         if point:
             self._batch_point_coverage(source, point)
-        for a in spanning:
-            self._compute_spanning_coverage(source, a)
-
-    def _compute_spanning_coverage(self, source: AlleleSource,
-                                   a: CalledAllele) -> None:
-        cfg = self.config
-        from pisces_tpu_torch.domain.types import CoverageMethod
-        use_exact = (cfg.coverage_method == CoverageMethod.EXACT
-                     and self.read_summaries is not None)
-        if use_exact:
-            from pisces_tpu_torch.ops.exact_coverage import exact_spanning_coverage
-            length = (len(a.alt_allele) - 1
-                      if a.category == AlleleCategory.INSERTION
-                      else len(a.ref_allele) - 1
-                      if a.category == AlleleCategory.DELETION
-                      else len(a.alt_allele))
-            cov_dir, total, ref_sup, sum_bq = exact_spanning_coverage(
-                source, self.read_summaries, a.category, a.position, length,
-                a.allele_support)
-            a.total_coverage = total
-            a.coverage_by_direction = cov_dir
-            a.reference_support = ref_sup
-            a.sum_of_base_quality = sum_bq
+        if not spanning:
             return
-        cov = compute_coverage(source, a.category, a.position, a.ref_allele,
-                               a.alt_allele, a.allele_support,
-                               a.well_anchored_support,
-                               cfg.consider_anchor_information)
-        a.total_coverage = cov.total_coverage
-        a.coverage_by_direction = cov.coverage_by_direction
-        a.reference_support = cov.reference_support
-        a.num_no_calls = cov.num_no_calls
-        a.sum_of_base_quality = cov.sum_of_base_quality
-        a.confident_coverage_start = cov.confident_coverage_start
-        a.confident_coverage_end = cov.confident_coverage_end
-        a.suspicious_coverage_start = cov.suspicious_coverage_start
-        a.suspicious_coverage_end = cov.suspicious_coverage_end
-        a.unanchored_coverage_weight = cov.unanchored_coverage_weight
-        if cov.allele_support_adjustment:
-            a.allele_support += cov.allele_support_adjustment
+        cfg = self.config
+        if (cfg.coverage_method == CoverageMethod.EXACT
+                and self.read_summaries is not None):
+            for a in spanning:
+                self._exact_spanning_coverage(source, a)
+            return
+        cols = _spanning_coverage_columns(source, spanning,
+                                          cfg.consider_anchor_information)
+        metrics.count("caller_spanning_columnar", len(spanning))
+        for i, a in enumerate(spanning):
+            _set_spanning_coverage(a, cols, i)
+
+    def _exact_spanning_coverage(self, source: AlleleSource,
+                                 a: CalledAllele) -> None:
+        from pisces_tpu_torch.ops.exact_coverage import exact_spanning_coverage
+        length = (len(a.alt_allele) - 1
+                  if a.category == AlleleCategory.INSERTION
+                  else len(a.ref_allele) - 1
+                  if a.category == AlleleCategory.DELETION
+                  else len(a.alt_allele))
+        cov_dir, total, ref_sup, sum_bq = exact_spanning_coverage(
+            source, self.read_summaries, a.category, a.position, length,
+            a.allele_support)
+        a.total_coverage = total
+        a.coverage_by_direction = cov_dir
+        a.reference_support = ref_sup
+        a.sum_of_base_quality = sum_bq
 
     def _batch_point_coverage(self, source: AlleleSource,
                               alleles: List[CalledAllele]) -> None:
@@ -774,25 +770,10 @@ def _point_coverage_columns(source: AlleleSource, pos: np.ndarray,
     total coverage, no-calls, sum of base qualities, reference support
     before the gapped-MNV adjustment) at 1-based `pos`, `ref_types` being
     each position's reference AlleleType code."""
-    from pisces_tpu_torch.domain.types import (
-        COVERAGE_CONTRIBUTING_ALLELES, AlleleType,
-    )
+    from pisces_tpu_torch.domain.types import COVERAGE_CONTRIBUTING_ALLELES
     cov_alleles = np.array([int(x) for x in COVERAGE_CONTRIBUTING_ALLELES])
     n = len(pos)
-    rows = np.atleast_1d(source.pc.pos_index(pos))
-    counts, quals = source._flat_counts, source._flat_quals
-    safe = np.maximum(rows, 0)
-    if len(counts) == 0:
-        c = np.zeros((n, counts.shape[1] if counts.ndim > 1 else 6, 3),
-                     np.int64)
-        qv = np.zeros_like(c, dtype=np.float64)
-    else:
-        c = counts[safe]
-        qv = quals[safe]
-        miss = rows < 0
-        if miss.any():
-            c = np.where(miss[:, None, None], 0, c)
-            qv = np.where(miss[:, None, None], 0.0, qv)
+    c, qv = source.flat_columns(pos)
     cov_by_dir = c[:, cov_alleles, :].sum(axis=1)   # [n, 3]
     total = cov_by_dir.sum(axis=1)
     # base-quality sums folded in the reference's accumulation order
@@ -818,6 +799,48 @@ def _set_point_coverage(a: CalledAllele, cols, i: int) -> None:
     a.sum_of_base_quality = float(sum_bq[i])
     a.confident_coverage_start = t
     a.confident_coverage_end = t
+
+
+def _spanning_coverage_columns(source: AlleleSource,
+                               alleles: List[CalledAllele],
+                               consider_anchor_information: bool):
+    """spanning_coverage_columns over spanning alleles."""
+    n = len(alleles)
+    n_type = int(AlleleType.N)
+
+    def col(values):
+        return np.fromiter(values, np.int64, n)
+
+    def inserted(j):
+        return col(int(BASE_TO_ALLELE[ord(a.alt_allele[j])])
+                   if a.category == AlleleCategory.INSERTION else n_type
+                   for a in alleles)
+
+    return spanning_coverage_columns(
+        source, col(int(a.category) for a in alleles),
+        col(a.position for a in alleles),
+        col(len(a.ref_allele) for a in alleles),
+        col(len(a.alt_allele) for a in alleles), inserted(1), inserted(-1),
+        col(a.allele_support for a in alleles),
+        col(a.well_anchored_support for a in alleles),
+        consider_anchor_information)
+
+
+def _set_spanning_coverage(a: CalledAllele, cols: SpanningColumns,
+                           i: int) -> None:
+    """An allele's spanning coverage from row i of
+    spanning_coverage_columns."""
+    a.total_coverage = int(cols.total_coverage[i])
+    a.coverage_by_direction = cols.coverage_by_direction[i].copy()
+    a.reference_support = int(cols.reference_support[i])
+    a.num_no_calls = int(cols.num_no_calls[i])
+    a.sum_of_base_quality = float(cols.sum_of_base_quality[i])
+    a.confident_coverage_start = int(cols.confident_coverage_start[i])
+    a.confident_coverage_end = int(cols.confident_coverage_end[i])
+    a.suspicious_coverage_start = int(cols.suspicious_coverage_start[i])
+    a.suspicious_coverage_end = int(cols.suspicious_coverage_end[i])
+    a.unanchored_coverage_weight = float(
+        cols.unanchored_coverage_weight[i])
 
 
 def _allele_columns(alleles: List[CalledAllele]):

@@ -1,16 +1,19 @@
 """AlleleSource: query facade over the pileup count tensors.
 
-Provides the reference IAlleleSource contract (GetAlleleCount /
+Provides the reference IAlleleSource queries (GetAlleleCount /
 GetSumOfAlleleBaseQualities / GetGappedMnvRefCount) against the block-tiled
-PileupCounts (RegionStateManager query side, cs:225-260). Full-anchor-range
-queries hit the dense totals; anchor-windowed queries hit the sparse
-anchor-resolved rows materialized at candidate positions.
+PileupCounts (RegionStateManager query side, cs:225-260): full-anchor-range
+totals by position, one at a time or as columns. The anchor-windowed
+queries of spanning coverage read the sparse anchor-resolved rows directly
+(ops/coverage.spanning_coverage_columns).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from pisces_tpu_torch.pileup.counts import PileupCounts, anchor_window_sum
+import numpy as np
+
+from pisces_tpu_torch.pileup.counts import PileupCounts
 
 
 class AlleleSource:
@@ -26,54 +29,39 @@ class AlleleSource:
         """GetCoverageByAmplicon equivalent (RegionState amplicon slots)."""
         return self.amplicon_coverage.get(position, {})
 
-    @staticmethod
-    def _is_full_range(min_anchor, max_anchor, from_end, symmetric) -> bool:
-        """Anchor windows that reduce to the full anchor-axis sum."""
-        return min_anchor == 0 and max_anchor is None
-
-    def get_allele_count(self, position: int, allele_type: int, direction: int,
-                         min_anchor: int = 0, max_anchor: Optional[int] = None,
-                         from_end: bool = False, symmetric: bool = False) -> int:
-        if self._is_full_range(min_anchor, max_anchor, from_end, symmetric):
-            row = int(self.pc.pos_index(position))
-            if row < 0:
-                return 0
-            return int(self._flat_counts[row, allele_type, direction])
-        ar = self.pc.anchored_row(position)
-        if ar < 0:
-            return 0
-        vec = self.pc.anchored_counts[ar, allele_type, direction]
-        return int(anchor_window_sum(vec, self.pc.anchor_size, min_anchor,
-                                     max_anchor, from_end, symmetric))
-
     def get_sum_of_base_qualities(self, position: int, allele_type: int,
-                                  direction: int, min_anchor: int = 0,
-                                  max_anchor: Optional[int] = None,
-                                  from_end: bool = False,
-                                  symmetric: bool = False) -> float:
-        if self._is_full_range(min_anchor, max_anchor, from_end, symmetric):
-            row = int(self.pc.pos_index(position))
-            if row < 0:
-                return 0.0
-            return float(self._flat_quals[row, allele_type, direction])
-        ar = self.pc.anchored_row(position)
-        if ar < 0:
+                                  direction: int) -> float:
+        """GetSumOfAlleleBaseQualities over the full anchor range."""
+        row = int(self.pc.pos_index(position))
+        if row < 0:
             return 0.0
-        vec = self.pc.anchored_quals[ar, allele_type, direction]
-        return float(anchor_window_sum(vec, self.pc.anchor_size, min_anchor,
-                                       max_anchor, from_end, symmetric))
+        return float(self._flat_quals[row, allele_type, direction])
 
     def flat_rows(self, position: int):
         """(counts_row, quals_row) views [6,3] for a position's full-range
-        totals, or None when untouched — lets per-variant coverage walks
-        (CoverageCalculator.CalculateSpanning/SinglePoint) fetch each
-        position ONCE instead of issuing 30+ scalar get_allele_count /
-        get_sum_of_base_qualities calls (measured ~270us per spanning
-        variant on the messy WGS profile)."""
+        totals, or None when untouched — lets a per-allele coverage walk
+        (CoverageCalculator.CalculateSinglePoint) fetch its position ONCE
+        instead of issuing a scalar query per allele and direction."""
         row = self.pc.pos_index(position)
         if row < 0:
             return None
         return self._flat_counts[row], self._flat_quals[row]
+
+    def flat_columns(self, pos):
+        """(counts, quals) [n, 6, 3] of the full-range totals at 1-based
+        positions `pos`, one gather; zeros where a position is untouched."""
+        rows = np.atleast_1d(self.pc.pos_index(pos))
+        counts, quals = self._flat_counts, self._flat_quals
+        if len(counts) == 0:
+            shape = (len(rows),) + counts.shape[1:]
+            return np.zeros(shape, counts.dtype), np.zeros(shape, quals.dtype)
+        safe = np.maximum(rows, 0)
+        c, q = counts[safe], quals[safe]
+        miss = rows < 0
+        if miss.any():
+            c = np.where(miss[:, None, None], 0, c)
+            q = np.where(miss[:, None, None], 0.0, q)
+        return c, q
 
     def get_gapped_mnv_ref_count(self, position: int) -> int:
         return self.gapped_mnv_ref_counts.get(position, 0)

@@ -2,12 +2,12 @@
 
 Single-point coverage (reference alleles / SNVs) and spanning coverage
 (deletion / MNV / insertion) per src/lib/Pisces.Calculators/CoverageCalculator.cs.
-The dense single-point path is vectorized over positions; the spanning path is
-per-candidate (variants are sparse).
+The dense single-point path is vectorized over positions; the spanning path
+takes a batch of alleles as columns (spanning_coverage_columns), one allele
+being the one-row case.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -17,6 +17,7 @@ from pisces_tpu_torch.domain.types import (
     AlleleType, DirectionType, get_allele_type,
 )
 from pisces_tpu_torch.calling.source import AlleleSource
+from pisces_tpu_torch.pileup.counts import anchor_window_sum
 
 _COV_ALLELES = [int(a) for a in COVERAGE_CONTRIBUTING_ALLELES]
 
@@ -73,174 +74,193 @@ def single_point_coverage(source: AlleleSource, position: int, ref_base: str,
     return res
 
 
-def _redistribute_stitched(cov: np.ndarray) -> None:
-    st = int(cov[DirectionType.STITCHED])
-    cov[DirectionType.FORWARD] += math.ceil(st / 2)
-    cov[DirectionType.REVERSE] += st // 2
-    cov[DirectionType.STITCHED] = 0
+@dataclass
+class SpanningColumns:
+    """CoverageResult's fields of n spanning alleles, one row each
+    (spanning_coverage_columns)."""
+    total_coverage: np.ndarray             # int64 [n]
+    coverage_by_direction: np.ndarray      # int64 [n, 3]
+    reference_support: np.ndarray          # int64 [n]
+    num_no_calls: np.ndarray               # int64 [n], always 0
+    sum_of_base_quality: np.ndarray        # float64 [n]
+    confident_coverage_start: np.ndarray   # int64 [n]
+    confident_coverage_end: np.ndarray
+    suspicious_coverage_start: np.ndarray
+    suspicious_coverage_end: np.ndarray
+    unanchored_coverage_weight: np.ndarray  # float64 [n]
+
+    def result(self, i: int) -> CoverageResult:
+        return CoverageResult(
+            int(self.total_coverage[i]),
+            self.coverage_by_direction[i].copy(),
+            int(self.reference_support[i]), int(self.num_no_calls[i]),
+            float(self.sum_of_base_quality[i]),
+            int(self.confident_coverage_start[i]),
+            int(self.confident_coverage_end[i]),
+            int(self.suspicious_coverage_start[i]),
+            int(self.suspicious_coverage_end[i]),
+            float(self.unanchored_coverage_weight[i]))
+
+
+def _ordered_sum(values: np.ndarray) -> np.ndarray:
+    """Sum [n, m] along its rows one value after another from 0.0, as the
+    reference's loops add them (a cumulative sum is sequential; numpy's
+    plain sum is pairwise)."""
+    n = len(values)
+    return np.cumsum(np.concatenate([np.zeros((n, 1)), values], axis=1),
+                     axis=1)[:, -1]
+
+
+def _window_sums(table: np.ndarray, rows: np.ndarray, allele: np.ndarray,
+                 anchor_size: int, min_anchor: int, max_anchor, from_end: bool
+                 ) -> np.ndarray:
+    """[m, 3]: anchor_window_sum of table[rows[j], allele[j], d] for each
+    direction d, 0 where rows[j] is -1 (no anchored row there)."""
+    if len(table) == 0:
+        return np.zeros((len(rows), NUM_DIRECTION_TYPES), table.dtype)
+    sums = anchor_window_sum(table[np.maximum(rows, 0), allele], anchor_size,
+                             min_anchor, max_anchor, from_end)
+    return np.where((rows >= 0)[:, None], sums, 0)
+
+
+def spanning_coverage_columns(source: AlleleSource, category, position,
+                              ref_len, alt_len, first_base, last_base,
+                              allele_support, well_anchored_support,
+                              consider_anchor_information: bool
+                              ) -> SpanningColumns:
+    """CoverageCalculator.CalculateSpanning (cs:171-331) over n deletions,
+    insertions or MNVs at once, one row each. Arrays [n]: the category,
+    1-based position, lengths of the ref and alt alleles, the AlleleType of
+    an insertion's first and last inserted base (any value for other
+    rows), the support and well-anchored support.
+
+    Each row gets the reference's arithmetic bit for bit: the same counts,
+    the f64 sum of base qualities in the reference's order, the int()
+    truncations and the f32 direction coverages. A picky row (an insertion
+    with anchor information) reads its first inserted base's allele at the
+    end position, and its last's at the start, from the anchor-resolved
+    rows, windowed by the insertion's length; every other count is a
+    full-range total."""
+    cat = np.asarray(category, np.int64)
+    position, ref_len, alt_len, first_base, last_base, support, well = (
+        np.asarray(x, np.int64) for x in (
+            position, ref_len, alt_len, first_base, last_base,
+            allele_support, well_anchored_support))
+    n = len(cat)
+    ins = cat == AlleleCategory.INSERTION
+    dele = cat == AlleleCategory.DELETION
+    length = np.where(ins, alt_len - 1, np.where(dele, ref_len - 1, alt_len))
+    start = np.where(dele, position + 1, position)
+    end = np.where(ins, position + 1, start + length - 1)
+    presume_anchored = ~ins | bool(source.expect_stitched_reads)
+    picky = ins & bool(consider_anchor_information)
+    unanchored = support - well
+
+    # [n, direction, allele] over the coverage-contributing alleles, in
+    # the reference's (d, a) loop order
+    def totals(pos):
+        c, q = source.flat_columns(pos)
+        return (c[:, _COV_ALLELES, :].transpose(0, 2, 1).astype(np.int64),
+                q[:, _COV_ALLELES, :].transpose(0, 2, 1).copy())
+
+    sc, sq = totals(start)
+    ec, eq = totals(end)
+    unanch_start = np.zeros((n, NUM_DIRECTION_TYPES), np.int64)
+    unanch_end = np.zeros((n, NUM_DIRECTION_TYPES), np.int64)
+    unanch_start_qual = np.zeros(n)
+    unanch_end_qual = np.zeros(n)
+
+    rows = np.nonzero(picky)[0]
+    if len(rows):
+        pc = source.pc
+        a_size = pc.anchor_size
+        s_ar = pc.anchored_rows(start[rows])
+        e_ar = pc.anchored_rows(end[rows])
+        # an allele's slot among the contributing alleles, -1 if none
+        slot = np.full(len(AlleleType), -1)
+        slot[_COV_ALLELES] = np.arange(len(_COV_ALLELES))
+        last, first = last_base[rows], first_base[rows]
+        for lng in np.unique(length[rows]).tolist():
+            g = np.nonzero(length[rows] == lng)[0]
+            # the last inserted base is windowed at the start, the first at
+            # the end; the unanchored qualities of both are read at the
+            # *start* (CoverageCalculator.cs:262-263), kept for parity
+            for ar, base, cnt, qual, from_end, u_cnt, u_qual in (
+                    (s_ar[g], last[g], sc, sq, False, unanch_start,
+                     unanch_start_qual),
+                    (e_ar[g], first[g], ec, eq, True, unanch_end,
+                     unanch_end_qual)):
+                j = np.nonzero(slot[base] >= 0)[0]
+                r, aj, bj, sl = rows[g][j], ar[j], base[j], slot[base[j]]
+                cnt[r, :, sl] = _window_sums(pc.anchored_counts, aj, bj,
+                                             a_size, lng, None, from_end)
+                qual[r, :, sl] = _window_sums(pc.anchored_quals, aj, bj,
+                                              a_size, lng, None, from_end)
+                k = np.nonzero(unanchored[r] > 0)[0]
+                u_cnt[r[k]] = _window_sums(pc.anchored_counts, aj[k], bj[k],
+                                           a_size, 0, lng - 1, from_end)
+                u_qual[r[k]] = _ordered_sum(_window_sums(
+                    pc.anchored_quals, s_ar[g][j][k], bj[k], a_size, 0,
+                    lng - 1, from_end))
+
+    # base qualities: (d, a) interleaved, start before end
+    sum_q = _ordered_sum(np.stack([sq, eq], axis=-1).reshape(
+        n, 2 * NUM_DIRECTION_TYPES * len(_COV_ALLELES)))
+    conf_l = sc.sum(axis=(1, 2))
+    conf_r = ec.sum(axis=(1, 2))
+    susp_l = unanch_start.sum(axis=1)
+    susp_r = unanch_end.sum(axis=1)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        truly_anchored = ((conf_l - susp_r) + (conf_r - susp_l)) / 2.0
+        anchored_vf = np.where(truly_anchored <= 0, 0.0,
+                               well / truly_anchored)
+        total_susp = susp_l + susp_r
+        unanch_vf = np.where(total_susp == 0, 0.0, unanchored / total_susp)
+        ratio = unanch_vf / anchored_vf
+    # max(0.0, 1.0 if anchored_vf == 0 else min(1.0, ratio)), as Python
+    # picks among equals
+    weight = np.where(anchored_vf == 0, 1.0, np.where(ratio < 1.0, ratio, 1.0))
+    weight = np.where(picky & (weight > 0.0), weight, 0.0)
+    start_cov = sc.sum(axis=2) + (unanch_start * weight[:, None]).astype(np.int64)
+    end_cov = ec.sum(axis=2) + (unanch_end * weight[:, None]).astype(np.int64)
+    # the reference adds these inside the direction loop (3x);
+    # reproduced for parity (CoverageCalculator.cs:295-297)
+    for _ in range(NUM_DIRECTION_TYPES):
+        sum_q = sum_q + unanch_start_qual * weight
+        sum_q = sum_q + unanch_end_qual * weight
+
+    for cov in (start_cov, end_cov):
+        # stitched support goes half to forward (rounded up), half to reverse
+        st = cov[:, DirectionType.STITCHED].copy()
+        cov[:, DirectionType.FORWARD] += -(-st // 2)
+        cov[:, DirectionType.REVERSE] += st // 2
+    s2, e2 = start_cov[:, :2], end_cov[:, :2]
+    exact = np.where(presume_anchored[:, None],
+                     (s2 + e2).astype(np.float32) / np.float32(2.0),
+                     np.minimum(s2, e2).astype(np.float32))
+    cov_by_dir = np.zeros((n, NUM_DIRECTION_TYPES), np.int64)
+    cov_by_dir[:, :2] = exact.astype(np.int64)
+    total = ((np.float32(0.0) + exact[:, 0]) + exact[:, 1]).astype(np.int64)
+    return SpanningColumns(
+        total, cov_by_dir, np.maximum(0, total - support),
+        np.zeros(n, np.int64), sum_q, conf_l, conf_r, susp_l, susp_r, weight)
 
 
 def spanning_coverage(source: AlleleSource, category: AlleleCategory,
                       position: int, ref_allele: str, alt_allele: str,
                       allele_support: int, well_anchored_support: int,
                       consider_anchor_information: bool) -> CoverageResult:
-    """CoverageCalculator.CalculateSpanning (cs:171-331)."""
-    length = (len(alt_allele) - 1 if category == AlleleCategory.INSERTION
-              else len(ref_allele) - 1 if category == AlleleCategory.DELETION
-              else len(alt_allele))
-    if category == AlleleCategory.DELETION:
-        start_pos, end_pos = position + 1, position + length
-        presume_anchored = True
-    elif category == AlleleCategory.MNV:
-        start_pos, end_pos = position, position + length - 1
-        presume_anchored = True
-    else:  # insertion
-        start_pos, end_pos = position, position + 1
-        presume_anchored = source.expect_stitched_reads
-
-    res = CoverageResult()
-    start_cov = np.zeros(3, dtype=np.int64)
-    end_cov = np.zeros(3, dtype=np.int64)
-    start_cov_unanch = np.zeros(3, dtype=np.int64)
-    end_cov_unanch = np.zeros(3, dtype=np.int64)
-    unanch_start_qual = 0.0
-    unanch_end_qual = 0.0
-    conf_l = conf_r = susp_l = susp_r = 0
-
-    be_picky = consider_anchor_information and category == AlleleCategory.INSERTION
-    if be_picky:
-        first_base = int(get_allele_type(alt_allele[1]))
-        last_base = int(get_allele_type(alt_allele[-1]))
-    else:
-        first_base = last_base = int(AlleleType.N)
-
-    unanchored_support = allele_support - well_anchored_support
-
-    if not be_picky:
-        # all queries are full-range: fetch both rows once and replay the
-        # same (d, a) accumulation order (float-sum parity with the
-        # per-call path); accumulators are plain ints — the generic path's
-        # per-cell numpy scalar in-place adds measured ~1.1s of a 2M-read
-        # WGS window sweep on their own
-        rs = source.flat_rows(start_pos)
-        re_ = source.flat_rows(end_pos)
-        zc = [[0] * 3 for _ in range(6)]
-        zq = [[0.0] * 3 for _ in range(6)]
-        cs, qs = (rs[0].tolist(), rs[1].tolist()) if rs else (zc, zq)
-        ce, qe = (re_[0].tolist(), re_[1].tolist()) if re_ else (zc, zq)
-        sum_q = res.sum_of_base_quality
-        s0 = s1 = s2 = e0 = e1 = e2 = 0
-        for a in _COV_ALLELES:
-            ca_ = cs[a]
-            cb_ = ce[a]
-            qa_ = qs[a]
-            qb_ = qe[a]
-            s0 += ca_[0]
-            e0 += cb_[0]
-            s1 += ca_[1]
-            e1 += cb_[1]
-            s2 += ca_[2]
-            e2 += cb_[2]
-        # float sums keep the reference's (d, a) interleaved order
-        for d in range(NUM_DIRECTION_TYPES):
-            for a in _COV_ALLELES:
-                sum_q += qs[a][d]
-                sum_q += qe[a][d]
-        res.sum_of_base_quality = sum_q
-        conf_l += s0 + s1 + s2
-        conf_r += e0 + e1 + e2
-        # _redistribute_stitched on plain ints
-        s0 += -(-s2 // 2)
-        s1 += s2 // 2
-        e0 += -(-e2 // 2)
-        e1 += e2 // 2
-        exact_total = np.float32(0.0)
-        for d, (sc_d, ec_d) in enumerate(((s0, e0), (s1, e1))):
-            if presume_anchored:
-                exact = np.float32(sc_d + ec_d) / np.float32(2.0)
-            else:
-                exact = np.float32(min(sc_d, ec_d))
-            res.coverage_by_direction[d] = int(exact)
-            exact_total += exact
-        res.total_coverage = int(exact_total)
-        res.reference_support = max(0, res.total_coverage - allele_support)
-        res.suspicious_coverage_start = susp_l
-        res.confident_coverage_start = conf_l
-        res.suspicious_coverage_end = susp_r
-        res.confident_coverage_end = conf_r
-        return res
-
-    for d in range(NUM_DIRECTION_TYPES):
-        for a in _COV_ALLELES:
-            anchored_only_end = be_picky and a == first_base
-            anchored_only_start = be_picky and a == last_base
-            min_anchor_end = length if anchored_only_end else 0
-            min_anchor_start = length if anchored_only_start else 0
-
-            sc = source.get_allele_count(start_pos, a, d, min_anchor_start)
-            start_cov[d] += sc
-            ec = source.get_allele_count(end_pos, a, d, min_anchor_end, from_end=True)
-            end_cov[d] += ec
-            conf_l += sc
-            conf_r += ec
-            res.sum_of_base_quality += source.get_sum_of_base_qualities(
-                start_pos, a, d, min_anchor_start)
-            res.sum_of_base_quality += source.get_sum_of_base_qualities(
-                end_pos, a, d, min_anchor_end, from_end=True)
-
-            if be_picky and unanchored_support > 0:
-                if min_anchor_start > 0:
-                    u = source.get_allele_count(start_pos, a, d, 0,
-                                                max_anchor=min_anchor_start - 1)
-                    start_cov_unanch[d] += u
-                    susp_l += u
-                    unanch_start_qual += source.get_sum_of_base_qualities(
-                        start_pos, a, d, 0, max_anchor=min_anchor_start - 1)
-                if min_anchor_end > 0:
-                    u = source.get_allele_count(end_pos, a, d, 0, from_end=True,
-                                                max_anchor=min_anchor_end - 1)
-                    end_cov_unanch[d] += u
-                    susp_r += u
-                    # NOTE: reference reads the *start* position here
-                    # (CoverageCalculator.cs:262-263); reproduced for parity.
-                    unanch_end_qual += source.get_sum_of_base_qualities(
-                        start_pos, a, d, 0, from_end=True,
-                        max_anchor=min_anchor_end - 1)
-
-    if be_picky:
-        truly_anchored = ((conf_l - susp_r) + (conf_r - susp_l)) / 2.0
-        anchored_vf = 0.0 if truly_anchored <= 0 else well_anchored_support / truly_anchored
-        total_susp = susp_l + susp_r
-        unanch_vf = 0.0 if total_susp == 0 else unanchored_support / float(total_susp)
-        weight = max(0.0, 1.0 if anchored_vf == 0 else min(1.0, unanch_vf / anchored_vf))
-        res.unanchored_coverage_weight = weight
-        for d in range(NUM_DIRECTION_TYPES):
-            start_cov[d] += int(start_cov_unanch[d] * weight)
-            end_cov[d] += int(end_cov_unanch[d] * weight)
-            # reference adds these inside the direction loop (3x);
-            # reproduced for parity (CoverageCalculator.cs:295-297)
-            res.sum_of_base_quality += unanch_start_qual * weight
-            res.sum_of_base_quality += unanch_end_qual * weight
-
-    _redistribute_stitched(start_cov)
-    _redistribute_stitched(end_cov)
-
-    exact_total = np.float32(0.0)
-    for d in range(2):
-        if presume_anchored:
-            exact = np.float32(int(start_cov[d]) + int(end_cov[d])) / np.float32(2.0)
-        else:
-            exact = np.float32(min(int(start_cov[d]), int(end_cov[d])))
-        res.coverage_by_direction[d] = int(exact)
-        exact_total += exact
-
-    res.total_coverage = int(exact_total)
-    res.reference_support = max(0, res.total_coverage - allele_support)
-    res.suspicious_coverage_start = susp_l
-    res.confident_coverage_start = conf_l
-    res.suspicious_coverage_end = susp_r
-    res.confident_coverage_end = conf_r
-    return res
+    """CoverageCalculator.CalculateSpanning (cs:171-331) for one allele:
+    the one-row case of spanning_coverage_columns."""
+    first = last = int(AlleleType.N)
+    if category == AlleleCategory.INSERTION:
+        first = int(get_allele_type(alt_allele[1]))
+        last = int(get_allele_type(alt_allele[-1]))
+    return spanning_coverage_columns(
+        source, [int(category)], [position], [len(ref_allele)],
+        [len(alt_allele)], [first], [last], [allele_support],
+        [well_anchored_support], consider_anchor_information).result(0)
 
 
 def compute_coverage(source: AlleleSource, category: AlleleCategory, position: int,

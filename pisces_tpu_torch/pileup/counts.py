@@ -54,10 +54,8 @@ class PileupCounts:
     # index int32 [L])
     pos_tuples: Optional[np.ndarray] = None
     gvcf_unique: Optional[tuple] = None
-    # lazy {block_key: slot} / {position: row} maps backing the scalar
-    # pos_index / anchored_row fast paths
+    # lazy {block_key: slot} map backing the scalar pos_index fast path
     _slot_map: Optional[dict] = None
-    _anchored_map: Optional[dict] = None
 
     def block_slot(self, pos) -> np.ndarray:
         keys = (np.asarray(pos, dtype=np.int64) + self.block_size - 1) // self.block_size
@@ -68,10 +66,9 @@ class PileupCounts:
 
     def pos_index(self, pos) -> np.ndarray:
         """Row index into the flattened totals; -1 when untouched.
-        Scalar queries (the per-variant coverage walks issue tens of
-        thousands of them — CoverageCalculator.CalculateSpanning) take a
-        dict-lookup fast path: the numpy scalar round-trip measured ~20us
-        per call, over half the messy single-thread e2e profile."""
+        Scalar queries (per-allele coverage walks, the collapser's
+        frequencies) take a dict-lookup fast path: the numpy scalar
+        round-trip measured ~20us per call."""
         if isinstance(pos, (int, np.integer)):
             m = self._slot_map
             if m is None:
@@ -93,15 +90,15 @@ class PileupCounts:
                 self.qual_t.reshape(nb * self.block_size, NUM_ALLELE_TYPES,
                                     NUM_DIRECTION_TYPES))
 
-    def anchored_row(self, pos: int) -> int:
-        """Index into anchored_counts/quals for a position; -1 if absent.
-        Dict-backed like the scalar pos_index (anchored rows exist only at
-        candidate positions, so the map is small)."""
-        m = self._anchored_map
-        if m is None:
-            m = {int(p): i for i, p in enumerate(self.anchored_positions)}
-            object.__setattr__(self, "_anchored_map", m)
-        return m.get(int(pos), -1)
+    def anchored_rows(self, pos) -> np.ndarray:
+        """Rows of anchored_counts/quals for positions, one searchsorted on
+        anchored_positions; -1 where a position has no anchored row."""
+        pos = np.asarray(pos, dtype=np.int64)
+        ap = self.anchored_positions
+        if len(ap) == 0:
+            return np.full(pos.shape, -1, np.int64)
+        i = np.minimum(np.searchsorted(ap, pos), len(ap) - 1)
+        return np.where(ap[i] == pos, i, -1)
 
 
 def _empty(block_size, anchor_size):
@@ -244,11 +241,14 @@ def build_counts_device(ev: BaseEvents, block_size: int = REGION_SIZE,
 # ---------------------------------------------------------------------------
 
 def anchor_window_sum(arr_last_axis: np.ndarray, anchor_size: int, min_anchor: int,
-                      max_anchor: Optional[int], from_end: bool,
-                      symmetric: bool = False) -> np.ndarray:
+                      max_anchor: Optional[int], from_end: bool) -> np.ndarray:
     """Sum counts over the anchor axis per AlleleCountHelper.GetAnchorAdjusted*.
 
-    arr_last_axis: [..., K] with K = 2A+1; returns [...].
+    arr_last_axis: [..., K] with K = 2A+1; returns [...]. The selected
+    entries are summed as a C-contiguous copy along its last axis: numpy
+    sums each row of such a copy as it sums a 1-D array (pairwise, from
+    the row's first entry), while a fancy index on the last axis leaves
+    that axis strided and the reduction takes another order.
     """
     a = anchor_size
     k = num_anchor_indexes(a)
@@ -266,19 +266,18 @@ def anchor_window_sum(arr_last_axis: np.ndarray, anchor_size: int, min_anchor: i
         for i in range(true_min, initial_max + 1):
             idx.append(k - i - 1)
         if max_anchor is None:
-            start = true_min if symmetric else 0
-            for i in range(start, initial_max):
+            for i in range(0, initial_max):
                 idx.append(i)
     else:
         for i in range(true_min, initial_max + 1):
             idx.append(i)
         if max_anchor is None:
-            stop = (k - true_min) if symmetric else k
-            for i in range(initial_max + 1, stop):
+            for i in range(initial_max + 1, k):
                 idx.append(i)
     if not idx:
         return np.zeros(arr_last_axis.shape[:-1], dtype=arr_last_axis.dtype)
-    return arr_last_axis[..., np.array(idx, dtype=np.intp)].sum(axis=-1)
+    return np.ascontiguousarray(
+        arr_last_axis[..., np.array(idx, dtype=np.intp)]).sum(axis=-1)
 
 
 def candidate_anchor_positions(candidates, pad: int = 1) -> np.ndarray:

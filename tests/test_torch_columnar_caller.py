@@ -14,17 +14,28 @@ The workload is pisces_tpu_torch.synthetic's messy genome generator cut to
 one chromosome of 20 kb at 40,000 reads of 100 bp (200x), 40 planted SNVs
 and a base-error floor of 0.2 % (seed 3): thousands of SNV rows, most of
 them too weak to call, as at panel depth.
+
+The caller's indels and MNVs take their spanning coverage in one column
+pass (ops/coverage.spanning_coverage_columns). On read pairs whose
+recurrent 2 bp insertions and deletions are called
+(synthetic.write_paired_workload), a whole run with that pass must leave
+every field of every spanning allele as the frozen per-allele oracle of
+tests/test_torch_spanning_coverage.py leaves it, on both read flows, and
+its VCF and gVCF bodies must be byte-equal to the reference package's.
 """
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import pisces_tpu_torch.apps.pisces as torch_app
 from pisces_tpu_torch.apps._pisces_main import (
     _normalize, build_parser, options_from_args,
 )
+from pisces_tpu_torch.apps.pisces import main as torch_main
 from pisces_tpu_torch.calling.caller import (
     AlleleCaller, CallerConfig, _point_coverage_columns,
     make_reference_candidates,
@@ -42,8 +53,11 @@ from pisces_tpu_torch.pileup.candidates_fast import (
     aggregate_native_mismatches, find_indel_candidates,
 )
 from pisces_tpu_torch.pileup.counts import candidate_anchor_positions
-from pisces_tpu_torch.synthetic import generate_wgs_workload
+from pisces_tpu_torch.synthetic import (
+    generate_wgs_workload, write_paired_workload,
+)
 from pisces_tpu_torch.utils.metrics import metrics
+from test_torch_spanning_coverage import frozen_spanning_coverage
 
 CHROM = "chrW"
 CASES = {
@@ -235,3 +249,152 @@ def test_columns_give_the_object_path_alleles(workload, case):
         total = _point_coverage_columns(
             gsource, snvs.position, BASE_TO_ALLELE[snvs.ref_base])[1]
         assert (total == 0).sum() > 10
+
+
+# -- spanning coverage as columns, on called indels ---------------------------
+
+_SPANNING = (AlleleCategory.INSERTION, AlleleCategory.DELETION,
+             AlleleCategory.MNV)
+
+
+@pytest.fixture(scope="module")
+def paired(tmp_path_factory):
+    """20 kb of read pairs at about 240x, 3 % of them carrying one of four
+    recurrent 2 bp indels: two insertions and two deletions are called."""
+    tmp = str(tmp_path_factory.mktemp("paired"))
+    bam, genome = write_paired_workload(os.path.join(tmp, "w"), 20_000,
+                                        12_000, indel_fraction=0.03, seed=7)
+    return tmp, bam, genome
+
+
+def _body(main, bam, genome, out, flags):
+    assert main(["-bam", bam, "-g", genome, "-o", out, *flags]) == 0
+    stem = os.path.basename(bam)[:-len(".bam")]
+    gvcf = flags[flags.index("-gVCF") + 1] == "true"
+    name = f"{stem}.genome.vcf" if gvcf else f"{stem}.vcf"
+    with open(os.path.join(out, name), "rb") as f:
+        return [ln for ln in f.read().splitlines() if not ln.startswith(b"#")]
+
+
+def _called_indels(body):
+    rows = [ln.split(b"\t") for ln in body]
+    return [r for r in rows if r[4] != b"." and len(r[3]) != len(r[4])
+            and r[6] == b"PASS"]
+
+
+def _per_allele_coverage(self, source, alleles):
+    """AlleleCaller._coverage with each spanning allele through the frozen
+    per-allele oracle, fields set as the per-allele path set them."""
+    point = [a for a in alleles if a.category not in _SPANNING]
+    if point:
+        self._batch_point_coverage(source, point)
+    for a in alleles:
+        if a.category not in _SPANNING:
+            continue
+        cov = frozen_spanning_coverage(
+            source, a.category, a.position, a.ref_allele, a.alt_allele,
+            a.allele_support, a.well_anchored_support,
+            self.config.consider_anchor_information)
+        a.total_coverage = cov.total_coverage
+        a.coverage_by_direction = cov.coverage_by_direction
+        a.reference_support = cov.reference_support
+        a.num_no_calls = cov.num_no_calls
+        a.sum_of_base_quality = cov.sum_of_base_quality
+        a.confident_coverage_start = cov.confident_coverage_start
+        a.confident_coverage_end = cov.confident_coverage_end
+        a.suspicious_coverage_start = cov.suspicious_coverage_start
+        a.suspicious_coverage_end = cov.suspicious_coverage_end
+        a.unanchored_coverage_weight = cov.unanchored_coverage_weight
+        if cov.allele_support_adjustment:
+            a.allele_support += cov.allele_support_adjustment
+
+
+def _python_flow(m):
+    m.setattr(torch_app, "open_bam",
+              lambda path: native.open_bam(path, prefer_native=False))
+
+
+SPANNING_CASES = {
+    "paired_native": dict(flags=["-gVCF", "false"]),
+    "paired_python": dict(python=True, flags=["-gVCF", "false"]),
+    "paired_native_gvcf": dict(flags=["-gVCF", "true"]),
+    "paired_python_gvcf_no_anchor_information": dict(
+        python=True, flags=["-gVCF", "true", "-TrackedAnchorSize", "0"]),
+    # the messy workload above: hundreds of 2 bp indels, few called
+    "messy_native": dict(messy=True, flags=["-gVCF", "false"]),
+    "messy_python_no_anchor_information": dict(
+        messy=True, python=True,
+        flags=["-gVCF", "false", "-TrackedAnchorSize", "0"]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPANNING_CASES))
+def test_spanning_columns_give_the_per_allele_alleles(request, monkeypatch,
+                                                      case):
+    """A whole run, column pass against the per-allele oracle: every field
+    of every spanning allele the caller scored (as the run leaves it:
+    coverage, scores, filters, genotype) and the output bodies."""
+    spec = SPANNING_CASES[case]
+    tmp, bam, genome = request.getfixturevalue("paired")
+    if spec.get("messy"):
+        bam, g = request.getfixturevalue("workload")
+        genome = g.directory
+    runs = []
+    for per_allele in (True, False):
+        scored = []
+        coverage = (_per_allele_coverage if per_allele
+                    else AlleleCaller._coverage)
+
+        def spy(self, source, alleles, _coverage=coverage):
+            scored.extend(a for a in alleles if a.category in _SPANNING)
+            return _coverage(self, source, alleles)
+
+        with monkeypatch.context() as m:
+            m.setattr(AlleleCaller, "_coverage", spy)
+            if spec.get("python"):
+                _python_flow(m)
+            body = _body(torch_main, bam, genome,
+                         os.path.join(tmp, f"{case}{int(per_allele)}"),
+                         ["-device", "cpu", *spec["flags"]])
+        runs.append((body, [_fields(a) for a in scored]))
+    (want_body, want), (got_body, got) = runs
+    assert len(got) == len(want) >= 4
+    for g, w in zip(got, want):
+        assert g == w, w["position"]
+    assert got_body == want_body
+    cats = {f["category"] for f in got}
+    assert {AlleleCategory.INSERTION, AlleleCategory.DELETION} <= cats
+    if spec.get("messy"):
+        assert len(got) > 100
+    else:
+        assert len(_called_indels(got_body)) == 4
+
+
+@pytest.mark.parametrize("gvcf", ["false", "true"])
+@pytest.mark.parametrize("flow", ["native", "python"])
+def test_called_indels_byte_equal_to_the_reference_package(
+        paired, monkeypatch, flow, gvcf):
+    """The port's VCF or gVCF body on the paired workload, byte-equal to
+    pisces_tpu -backend jax's on the same read flow."""
+    import conftest  # noqa: F401  (keeps JAX on the CPU)
+    import pisces_tpu.io.native as jax_native
+    from pisces_tpu.apps.pisces import main as jax_main
+    tmp, bam, genome = paired
+    flags = ["-gVCF", gvcf]
+    with monkeypatch.context() as m:
+        if flow == "python":
+            _python_flow(m)
+            jax_open = jax_native.open_bam
+            m.setattr(jax_native, "open_bam",
+                      lambda path, prefer_native=True, lazy=False:
+                      jax_open(path, prefer_native=False, lazy=lazy))
+        port = _body(torch_main, bam, genome,
+                     os.path.join(tmp, f"t{flow}{gvcf}"),
+                     ["-device", "cpu", *flags])
+        ref = _body(jax_main, bam, genome,
+                    os.path.join(tmp, f"j{flow}{gvcf}"),
+                    ["-backend", "jax", *flags])
+    assert port == ref
+    assert len(_called_indels(port)) == 4
+    if gvcf == "true":
+        assert len(port) > 19_000

@@ -424,3 +424,43 @@ def test_caller_counts_its_columnar_rows(workload, tmp_path, monkeypatch,
     assert "caller_rows_columnar" not in want
     assert got["candidates_scored"] == want["candidates_scored"] \
         > got["caller_rows_columnar"]
+
+
+@pytest.mark.parametrize("method", ["approximate", "exact"])
+def test_caller_counts_its_spanning_columns(workload, tmp_path, monkeypatch,
+                                            method):
+    """caller_spanning_columnar is every deletion, insertion and MNV the
+    caller scored, under the default coverage method; -CoverageMethod
+    exact keeps its per-allele exact_spanning_coverage, and the counter
+    reads 0."""
+    import pisces_tpu_torch.ops.exact_coverage as exact_coverage
+    bam, genome = workload["shallow"]
+    spanning = (AlleleCategory.DELETION, AlleleCategory.INSERTION,
+                AlleleCategory.MNV)
+    scored, exact_calls = [], []
+    coverage = torch_caller.AlleleCaller._coverage
+    exact = exact_coverage.exact_spanning_coverage
+
+    def spy(self, source, alleles):
+        scored.append(sum(a.category in spanning for a in alleles))
+        return coverage(self, source, alleles)
+
+    def spy_exact(*a, **k):
+        exact_calls.append(1)
+        return exact(*a, **k)
+
+    extra = ["-backend", "numpy"]
+    if method == "exact":
+        extra += ["-CoverageMethod", "exact"]
+    with monkeypatch.context() as m:
+        m.setattr(torch_caller.AlleleCaller, "_coverage", spy)
+        m.setattr(exact_coverage, "exact_spanning_coverage", spy_exact)
+        _sample(bam, genome, str(tmp_path / "o"), extra)
+    got = metrics.snapshot()["counters"].get("caller_spanning_columnar", 0)
+    assert sum(scored) > 10
+    if method == "exact":
+        assert got == 0
+        assert len(exact_calls) == sum(scored)
+    else:
+        assert got == sum(scored)
+        assert exact_calls == []
