@@ -273,8 +273,7 @@ def call_chromosome(options: PiscesApplicationOptions, chrom: ChrReference,
                                  if f[0] == chrom.name}
     n_candidates = len(candidates) + (len(snvs) if snvs is not None else 0)
     with metrics.stage("allele_calling"):
-        by_position = caller.call(candidates, source, max_position=None,
-                                  snvs=snvs)
+        by_position = caller.call(candidates, source, snvs=snvs)
         if (options.vcf_writing_parameters.report_rc_counts
                 and batch.extra_tags is not None):
             from pisces_tpu_torch.pileup.collapsed import (

@@ -5,15 +5,15 @@ AlleleCaller.cs:50-264): collapse -> MNV triage/reallocation -> per-candidate
 scoring (coverage, Poisson q-score, strand bias) -> filters -> per-locus
 genotyping -> deterministic ordering.
 
-This module operates in whole-chromosome batch mode (the streaming block
-protocol of RegionStateManager collapses to a single final Call with
-upToPosition=None). Large candidate batches score their Poisson q on a
-torch device (ops/torch_scoring.score_snv_loci).
+This module operates in batch mode: one call covers a whole chromosome or
+window, so the reference's streaming block protocol (RegionStateManager's
+upToPosition, and the MNV pieces and collapse targets it carries into the
+next block) has no counterpart. Large candidate batches score their
+Poisson q on a torch device (ops/torch_scoring.score_snv_loci).
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, List, Optional
 
@@ -46,6 +46,10 @@ from pisces_tpu_torch.pileup.candidates import Candidate
 from pisces_tpu_torch.pileup.candidates_fast import SnvCandidateBatch
 from pisces_tpu_torch.pileup.counts import PileupCounts
 from pisces_tpu_torch.utils.metrics import metrics
+
+# candidate batches of at least this many alleles score their q on the
+# device (CallerConfig.device_batch_threshold)
+DEVICE_BATCH_THRESHOLD = 4096
 
 
 @dataclass
@@ -89,7 +93,7 @@ class CallerConfig:
     # path. The threshold is the reference package's, kept for output
     # parity; integer q outputs are exact either way.
     device: Optional[torch.device] = None
-    device_batch_threshold: int = 4096
+    device_batch_threshold: int = DEVICE_BATCH_THRESHOLD
     # a parallel/sharding.Mesh (-MeshDevices > 1): device candidate batches
     # shard over its devices (sharded_score_snv_tuples)
     mesh: Optional[Mesh] = None
@@ -127,8 +131,7 @@ class CallerConfig:
             noise_model=v.noise_model,
             coverage_method=options.coverage_method,
             need_sb_detail=options.output_bias_files,
-            device_batch_threshold=int(os.environ.get(
-                "PISCES_DEVICE_BATCH_THRESHOLD", "4096")),
+            device_batch_threshold=DEVICE_BATCH_THRESHOLD,
             is_male=v.is_male,
             ploidy_model=v.ploidy_model,
             min_frequency_filter=max(v.minimum_frequency_filter, v.minimum_frequency),
@@ -183,33 +186,108 @@ class AlleleCaller:
     def total_num_collapsed(self) -> int:
         return 0 if self.collapser is None else self.collapser.total_num_collapsed
 
-    # -- per-variant scoring (ProcessVariant, AlleleCaller.cs:208-234) -------
+    # -- coverage, scoring, filters (ProcessVariant, AlleleCaller.cs:208-234)
     #
     # The reference scores one allele at a time inside the per-candidate
-    # loop; this build phases the same math so the batch of candidates hits
-    # the vectorized/fused kernels once:
-    #   phase 1  coverage reconciliation (point coverage gathered columnar
-    #            for SNV/reference alleles, spanning coverage in one column
-    #            pass over the indels and MNVs)
-    #   phase 2  q-score + strand bias over the whole batch (host f64
-    #            vectorized, or the torch device for large batches)
-    #   phase 3  amplicon bias + filters (host, per-allele string logic)
+    # loop; this build phases the same math so that a batch of SNV rows and
+    # candidate alleles hits the vectorized kernels once:
+    #   coverage  point coverage gathered as columns for the SNV rows and
+    #             the SNV/reference alleles, spanning coverage in one column
+    #             pass over the indels and MNVs
+    #   scoring   q-score + strand bias over the whole batch (host f64
+    #             vectorized, or the torch device for large batches), then
+    #             amplicon bias
+    #   filters   per-allele filters on the alleles, callability as masks on
+    #             the rows; the rows reported or forced become CalledAlleles
 
-    def process_variant(self, source: AlleleSource, a: CalledAllele) -> None:
-        self.process_variants_batch(source, [a])
-
-    def process_variants_batch(self, source: AlleleSource,
-                               alleles: List[CalledAllele]) -> None:
-        if not alleles:
-            return
+    def _score_and_filter(self, source: AlleleSource,
+                          objects: List[CalledAllele],
+                          snvs: Optional[SnvCandidateBatch] = None
+                          ) -> List[CalledAllele]:
+        """Steps coverage, scoring and filters on SNV rows (None: none) and
+        alleles. Returns the rows that are callable and reported, or
+        forced, as CalledAlleles, then `objects`: the order the reference
+        scores them in. Callable rows left out count as called, as call's
+        loop would count them."""
+        rows = _no_snvs() if snvs is None else snvs
+        n = len(rows)
+        if not objects and not n:
+            return []
+        cfg = self.config
         with metrics.stage("allele_calling.coverage"):
-            self._coverage(source, alleles)
+            self._coverage(source, objects)
+            cov_cols, _ = _point_coverage(
+                source, rows.position,
+                BASE_TO_ALLELE[rows.ref_base].astype(np.int64), True)
+            cov_by_dir, cov, num_nc, sum_bq, ref_sup = cov_cols
+            sup_by_dir = rows.support_by_direction
+            sup = sup_by_dir.sum(axis=1)
+
         with metrics.stage("allele_calling.scoring"):
-            self._score_batch([a for a in alleles if a.allele_support > 0],
-                              source)
+            # one batch, rows first (the device threshold counts both)
+            scored_rows = np.nonzero(sup > 0)[0]
+            scored = [a for a in objects if a.allele_support > 0]
+            q = np.zeros(n, np.int64)
+            scores = None
+            if len(scored_rows) or scored:
+                row_cols = (sup, cov, sup_by_dir, cov_by_dir, ref_sup,
+                            num_nc, sum_bq)
+                scores = self._score_columns(*(
+                    np.concatenate([c[scored_rows], o]) for c, o in
+                    zip(row_cols, _allele_columns(scored))))
+                k = len(scored_rows)
+                self._set_scores(scored, scores, range(k, k + len(scored)))
+                q[scored_rows] = scores[1][:k]
+            score_row = np.full(n, -1, np.int64)
+            score_row[scored_rows] = np.arange(len(scored_rows))
+            if cfg.amplicon_bias_filter_threshold is not None:
+                from pisces_tpu_torch.ops.amplicon_bias import (
+                    calculate_amplicon_bias,
+                )
+                for a in scored:
+                    if a.category != AlleleCategory.SNV:
+                        continue
+                    ab = calculate_amplicon_bias(
+                        getattr(a, "support_by_amplicon", None) or {},
+                        source.get_amplicon_coverage(a.position),
+                        cfg.amplicon_bias_filter_threshold,
+                        cfg.max_variant_qscore)
+                    if ab is not None:
+                        a.amplicon_bias_detected = ab["bias_detected"]
+                        a.amplicon_bias_results = ab["results"]
+
         with metrics.stage("allele_calling.filters"):
-            for a in alleles:
+            for a in objects:
                 self._apply_filters(a)
+            # _is_callable on the rows; frequency is CalledAllele's f32
+            with np.errstate(divide="ignore", invalid="ignore"):
+                freq = np.minimum(sup.astype(np.float32)
+                                  / cov.astype(np.float32), np.float32(1.0))
+            called = (~((cov != 0) & (freq < np.float32(cfg.min_frequency)))
+                      & (q >= cfg.min_variant_qscore))
+            if not cfg.include_reference_calls:
+                called &= cov >= cfg.min_coverage
+            reported = called.copy()
+            if self.interval_set is not None:
+                for i in np.nonzero(called)[0]:
+                    reported[i] = self.interval_set.contains(
+                        int(rows.position[i]))
+            forced = rows.rows_in((p, r, a) for c, p, r, a
+                                  in self.forced_alleles
+                                  if c == rows.chromosome)
+            keep = reported | forced
+            self.total_num_called += int(np.count_nonzero(called & ~keep))
+            if snvs is not None:
+                metrics.count("caller_rows_materialized", int(keep.sum()))
+            alleles: List[CalledAllele] = []
+            for i in np.nonzero(keep)[0]:
+                a = map_candidate(rows.candidate(i))
+                _set_point_coverage(a, cov_cols, i)
+                if score_row[i] >= 0:
+                    self._set_scores([a], scores, [int(score_row[i])])
+                self._apply_filters(a)
+                alleles.append(a)
+        return alleles + objects
 
     def _coverage(self, source: AlleleSource,
                   alleles: List[CalledAllele]) -> None:
@@ -259,47 +337,16 @@ class AlleleCaller:
         tensors instead of 36 scalar lookups per allele."""
         from pisces_tpu_torch.domain.types import get_allele_type
         n = len(alleles)
-        pos = np.fromiter((a.position for a in alleles), np.int64, n)
-        ref_types = np.fromiter(
-            (int(get_allele_type(a.ref_allele[0])) for a in alleles),
-            np.int64, n)
-        cols = _point_coverage_columns(source, pos, ref_types)
-        ref_sup = cols[-1]
-        gapped = source.gapped_mnv_ref_counts
+        cols, held = _point_coverage(
+            source, np.fromiter((a.position for a in alleles), np.int64, n),
+            np.fromiter((int(get_allele_type(a.ref_allele[0]))
+                         for a in alleles), np.int64, n),
+            np.fromiter((a.category == AlleleCategory.SNV for a in alleles),
+                        bool, n))
         for i, a in enumerate(alleles):
             _set_point_coverage(a, cols, i)
-            rs = int(ref_sup[i])
-            g = gapped.get(a.position, 0) if gapped else 0
-            if a.category == AlleleCategory.SNV:
-                rs = max(0, rs - g)
-            elif a.category == AlleleCategory.REFERENCE and g:
-                a.allele_support -= min(g, a.allele_support)
-            a.reference_support = rs
-
-    def _score_batch(self, alleles: List[CalledAllele],
-                     source: AlleleSource) -> None:
-        """Batched q-score + strand bias (phase 2) followed by per-allele
-        amplicon bias (phase 3 prologue)."""
-        cfg = self.config
-        n = len(alleles)
-        if n == 0:
-            return
-        scores = self._score_columns(*_allele_columns(alleles))
-        self._set_scores(alleles, scores, range(n))
-
-        if cfg.amplicon_bias_filter_threshold is not None:
-            from pisces_tpu_torch.ops.amplicon_bias import calculate_amplicon_bias
-            for a in alleles:
-                if a.category != AlleleCategory.SNV:
-                    continue
-                support_by_amp = getattr(a, "support_by_amplicon", None) or {}
-                cov_by_amp = source.get_amplicon_coverage(a.position)
-                ab = calculate_amplicon_bias(
-                    support_by_amp, cov_by_amp,
-                    cfg.amplicon_bias_filter_threshold, cfg.max_variant_qscore)
-                if ab is not None:
-                    a.amplicon_bias_detected = ab["bias_detected"]
-                    a.amplicon_bias_results = ab["results"]
+            if a.category == AlleleCategory.REFERENCE and held[i]:
+                a.allele_support -= min(int(held[i]), a.allele_support)
 
     def _score_columns(self, sup, cov, sup_by_dir, cov_by_dir, ref_sup,
                        num_nc, sum_bq):
@@ -492,7 +539,6 @@ class AlleleCaller:
     # -- main entry -----------------------------------------------------------
 
     def call(self, candidates: List[Candidate], source: AlleleSource,
-             max_position: Optional[int] = None,
              snvs: Optional[SnvCandidateBatch] = None
              ) -> Dict[int, List[CalledAllele]]:
         """CallForPositions: returns {position: [alleles sorted by ref,alt]}.
@@ -500,23 +546,21 @@ class AlleleCaller:
         `snvs` holds more SNV candidates as columns; in the reference's
         order they come before `candidates` (the native flow passes its
         SNVs so, and its indels, forced and reference candidates as
-        objects). Where no step reads every allele, the rows are scored as
-        columns and only those reported or forced become CalledAlleles;
-        otherwise they join `candidates` as objects."""
+        objects). Only the rows reported or forced become CalledAlleles,
+        unless a step reads every SNV allele: MNVs do (failed ones are
+        reallocated into SNV alleles, called ones take reference support),
+        and so does amplicon bias (each SNV's support by amplicon). Then
+        the rows join `candidates` as objects."""
         cfg = self.config
-        if snvs is not None and not self._columns_apply(candidates,
-                                                        max_position):
+        if snvs is not None and (
+                cfg.amplicon_bias_filter_threshold is not None
+                or any(c.category == AlleleCategory.MNV for c in candidates)):
             candidates = snvs.to_candidates() + list(candidates)
             snvs = None
-        # five steps, each a stage, that together tile the call:
-        # prepare (collapse, mapping, MNV triage), then coverage, scoring
-        # and filters (process_variants_batch, or _process_columns), the
-        # callable/report/forced pass (filters again) and genotype
-        if snvs is None:
-            callable_alleles = self._prepare(candidates, source, max_position)
-            self.process_variants_batch(source, callable_alleles)
-        else:
-            callable_alleles = self._process_columns(snvs, candidates, source)
+        # five steps, each a stage, that together tile the call: prepare,
+        # coverage, scoring and filters (_process), the callable/report/
+        # forced pass (filters again) and genotype
+        callable_alleles = self._process(snvs, candidates, source)
 
         by_position: Dict[int, List[CalledAllele]] = {}
         with metrics.stage("allele_calling.filters"):
@@ -550,69 +594,52 @@ class AlleleCaller:
 
             return dict(sorted(by_position.items()))
 
-    def _prepare(self, candidates: List[Candidate], source: AlleleSource,
-                 max_position: Optional[int]) -> List[CalledAllele]:
-        """Collapse, mapping, MNV triage and reallocation, gapped-MNV ref
-        counts: the alleles that go on to be scored."""
-        failed_mnvs: List[CalledAllele] = []
-        callable_alleles: List[CalledAllele] = []
+    def _process(self, snvs: Optional[SnvCandidateBatch],
+                 candidates: List[Candidate],
+                 source: AlleleSource) -> List[CalledAllele]:
+        """Steps prepare, coverage, scoring and filters on the SNV rows
+        (None: none) and the candidates. Prepare collapses them, maps the
+        candidates to alleles, scores the MNVs (_score_and_filter) to
+        reallocate those not callable, and counts the reference support
+        that the gapped MNVs hold; the rows and the alleles left then go
+        through _score_and_filter together."""
         with metrics.stage("allele_calling.prepare"):
             if self.collapser is not None:
-                candidates = self.collapser.collapse(list(candidates), source,
-                                                     max_position)
-
-            mapped = [map_candidate(cand) for cand in candidates]
-            mnvs = [v for v in mapped if v.category == AlleleCategory.MNV]
-        self.process_variants_batch(source, mnvs)
+                snvs, candidates = self._collapse(snvs, candidates, source)
+            if snvs is not None:
+                metrics.count("caller_rows_columnar", len(snvs))
+            objects = [map_candidate(cand) for cand in candidates]
+            mnvs = [a for a in objects if a.category == AlleleCategory.MNV]
+        self._score_and_filter(source, mnvs)
         with metrics.stage("allele_calling.prepare"):
-            for variant in mapped:
-                if variant.category == AlleleCategory.MNV:
-                    if self._is_callable(variant):
-                        callable_alleles.append(variant)
-                    else:
-                        failed_mnvs.append(variant)
+            callable_alleles: List[CalledAllele] = []
+            failed_mnvs: List[CalledAllele] = []
+            for a in objects:
+                if a.category != AlleleCategory.MNV or self._is_callable(a):
+                    callable_alleles.append(a)
                 else:
-                    callable_alleles.append(variant)
-
-            spilled = reallocate_failed_mnvs(failed_mnvs, callable_alleles,
-                                             max_position)
-            # spilled alleles re-enter the next region's candidate pool
-            self.spilled_next_region = spilled
-
+                    failed_mnvs.append(a)
+            reallocate_failed_mnvs(failed_mnvs, callable_alleles)
             source.add_gapped_mnv_ref_counts(
                 get_ref_support_from_gapped_mnvs(callable_alleles))
+            callable_alleles += [a for a in failed_mnvs if self._is_forced(a)]
+        return self._score_and_filter(source, callable_alleles, snvs)
 
-            for failed in failed_mnvs:
-                if self._is_forced(failed):
-                    callable_alleles.append(failed)
-        return callable_alleles
-
-    # -- SNV candidates as columns -------------------------------------------
-
-    def _columns_apply(self, candidates: List[Candidate],
-                       max_position: Optional[int]) -> bool:
-        """Whether SNV rows may stay columns: no step reads every SNV
-        allele. MNVs do (failed ones are reallocated into SNV alleles,
-        called ones take reference support), so do the block spill past
-        `max_position` and amplicon bias (each SNV's support by
-        amplicon)."""
-        return (max_position is None
-                and self.config.amplicon_bias_filter_threshold is None
-                and not any(c.category == AlleleCategory.MNV
-                            for c in candidates))
-
-    def _collapse_columns(self, snvs: SnvCandidateBatch,
-                          candidates: List[Candidate], source: AlleleSource):
-        """VariantCollapser.collapse over the rows and the objects. With no
-        MNV present an open-ended SNV merges only into an SNV at its own
-        position, and indels only into indels (collapser._can_collapse):
-        so only the rows at positions that hold an open-ended row become
-        Candidates. Their merged supports go back into the columns, and
-        the rows merged away drop out."""
+    def _collapse(self, snvs: Optional[SnvCandidateBatch],
+                  candidates: List[Candidate], source: AlleleSource):
+        """VariantCollapser.collapse over the rows (None: none) and the
+        objects. With no MNV present (call hands MNVs the rows as objects)
+        an open-ended SNV merges only into an SNV at its own position, and
+        indels only into indels (collapser._can_collapse): so only the rows
+        at positions that hold an open-ended row become Candidates. Their
+        merged supports go back into the columns, and the rows merged away
+        drop out."""
+        if snvs is None:
+            return None, self.collapser.collapse(list(candidates), source)
         open_rows = snvs.open_on_left | snvs.open_on_right
         rows = np.nonzero(np.isin(snvs.position, snvs.position[open_rows]))[0]
         objs = [snvs.candidate(i) for i in rows]
-        kept = self.collapser.collapse(objs + list(candidates), source, None)
+        kept = self.collapser.collapse(objs + list(candidates), source)
         row_of = {id(c): i for c, i in zip(objs, rows)}
         keep = np.ones(len(snvs), dtype=bool)
         keep[rows] = False
@@ -630,92 +657,6 @@ class AlleleCaller:
         merged = dataclasses.replace(snvs, support_by_direction=sup,
                                      well_anchored_by_direction=wa)
         return merged.take(keep), rest
-
-    def _process_columns(self, snvs: SnvCandidateBatch,
-                         candidates: List[Candidate],
-                         source: AlleleSource) -> List[CalledAllele]:
-        """The object path's prepare, coverage, scoring and filters with
-        the SNV rows held as columns, in the same order and arithmetic.
-        Returns the rows that are callable and reported, or forced, as
-        CalledAlleles, then the objects' alleles: the order the object
-        path scores them in. Callable rows left out count as called, as
-        the object path's loop would count them."""
-        cfg = self.config
-        with metrics.stage("allele_calling.prepare"):
-            if self.collapser is not None:
-                snvs, candidates = self._collapse_columns(snvs, candidates,
-                                                          source)
-            # no MNV: none fails to reallocate, none takes reference support
-            self.spilled_next_region = []
-            objects = [map_candidate(cand) for cand in candidates]
-            n = len(snvs)
-            metrics.count("caller_rows_columnar", n)
-
-        with metrics.stage("allele_calling.coverage"):
-            self._coverage(source, objects)
-            cov_cols = _point_coverage_columns(
-                source, snvs.position,
-                BASE_TO_ALLELE[snvs.ref_base].astype(np.int64))
-            cov_by_dir, cov, num_nc, sum_bq, ref_sup = cov_cols
-            gapped = source.gapped_mnv_ref_counts
-            if gapped:
-                ref_sup = np.maximum(0, ref_sup - np.fromiter(
-                    (gapped.get(int(p), 0) for p in snvs.position),
-                    np.int64, n))
-            sup_by_dir = snvs.support_by_direction
-            sup = sup_by_dir.sum(axis=1)
-
-        with metrics.stage("allele_calling.scoring"):
-            # one batch, rows first, as the object path scores it (the
-            # device threshold counts both)
-            rows = np.nonzero(sup > 0)[0]
-            scored = [a for a in objects if a.allele_support > 0]
-            q = np.zeros(n, np.int64)
-            scores = None
-            if len(rows) or scored:
-                row_cols = (sup, cov, sup_by_dir, cov_by_dir, ref_sup,
-                            num_nc, sum_bq)
-                scores = self._score_columns(*(
-                    np.concatenate([c[rows], o]) for c, o in
-                    zip(row_cols, _allele_columns(scored))))
-                self._set_scores(scored, scores,
-                                 range(len(rows), len(rows) + len(scored)))
-                q[rows] = scores[1][:len(rows)]
-            score_row = np.full(n, -1, np.int64)
-            score_row[rows] = np.arange(len(rows))
-
-        with metrics.stage("allele_calling.filters"):
-            for a in objects:
-                self._apply_filters(a)
-            # _is_callable on the rows; frequency is CalledAllele's f32
-            with np.errstate(divide="ignore", invalid="ignore"):
-                freq = np.minimum(sup.astype(np.float32)
-                                  / cov.astype(np.float32), np.float32(1.0))
-            called = (~((cov != 0) & (freq < np.float32(cfg.min_frequency)))
-                      & (q >= cfg.min_variant_qscore))
-            if not cfg.include_reference_calls:
-                called &= cov >= cfg.min_coverage
-            reported = called.copy()
-            if self.interval_set is not None:
-                for i in np.nonzero(called)[0]:
-                    reported[i] = self.interval_set.contains(
-                        int(snvs.position[i]))
-            forced = snvs.rows_in((p, r, a) for c, p, r, a
-                                  in self.forced_alleles
-                                  if c == snvs.chromosome)
-            keep = reported | forced
-            self.total_num_called += int(np.count_nonzero(called & ~keep))
-            metrics.count("caller_rows_materialized", int(keep.sum()))
-            alleles: List[CalledAllele] = []
-            for i in np.nonzero(keep)[0]:
-                a = map_candidate(snvs.candidate(i))
-                _set_point_coverage(a, cov_cols, i)
-                a.reference_support = int(ref_sup[i])
-                if score_row[i] >= 0:
-                    self._set_scores([a], scores, [int(score_row[i])])
-                self._apply_filters(a)
-                alleles.append(a)
-        return alleles + objects
 
     def _compute_genotype_and_filter(self, alleles: List[CalledAllele],
                                      gt_precomputed: bool = False) -> None:
@@ -779,7 +720,8 @@ def _point_coverage_columns(source: AlleleSource, pos: np.ndarray,
     # base-quality sums folded in the reference's accumulation order
     # (direction-major, then allele) so f64 rounding matches the scalar
     # path bit for bit (WINDOW noise model consumes this)
-    qflat = qv[:, cov_alleles, :].transpose(0, 2, 1).reshape(n, -1)
+    qflat = qv[:, cov_alleles, :].transpose(0, 2, 1).reshape(
+        n, len(cov_alleles) * NUM_DIRECTION_TYPES)
     sum_bq = np.zeros(n, np.float64)
     for j in range(qflat.shape[1]):
         sum_bq += qflat[:, j]
@@ -788,10 +730,28 @@ def _point_coverage_columns(source: AlleleSource, pos: np.ndarray,
     return cov_by_dir, total, num_nc, sum_bq, ref_sup
 
 
+def _point_coverage(source: AlleleSource, pos: np.ndarray,
+                    ref_types: np.ndarray, snv):
+    """_point_coverage_columns with the reference support that gapped MNVs
+    hold at each position (source.gapped_mnv_ref_counts) taken off that of
+    the SNVs (`snv`: a row mask, or True for all), floored at 0. Returns
+    the columns and that support, which a reference allele at the position
+    gives up from its own."""
+    cov_by_dir, total, num_nc, sum_bq, ref_sup = _point_coverage_columns(
+        source, pos, ref_types)
+    gapped = source.gapped_mnv_ref_counts
+    held = np.zeros(len(pos), np.int64)
+    if gapped:
+        held = np.fromiter((gapped.get(int(p), 0) for p in pos), np.int64,
+                           len(pos))
+        ref_sup = np.where(snv, np.maximum(0, ref_sup - held), ref_sup)
+    return (cov_by_dir, total, num_nc, sum_bq, ref_sup), held
+
+
 def _set_point_coverage(a: CalledAllele, cols, i: int) -> None:
-    """An allele's point coverage from row i of _point_coverage_columns
-    (all but the reference support)."""
-    cov_by_dir, total, num_nc, sum_bq, _ = cols
+    """An allele's point coverage from row i of _point_coverage's
+    columns."""
+    cov_by_dir, total, num_nc, sum_bq, ref_sup = cols
     t = int(total[i])
     a.total_coverage = t
     a.coverage_by_direction = cov_by_dir[i].astype(np.int64)
@@ -799,6 +759,7 @@ def _set_point_coverage(a: CalledAllele, cols, i: int) -> None:
     a.sum_of_base_quality = float(sum_bq[i])
     a.confident_coverage_start = t
     a.confident_coverage_end = t
+    a.reference_support = int(ref_sup[i])
 
 
 def _spanning_coverage_columns(source: AlleleSource,
@@ -861,6 +822,15 @@ def _allele_columns(alleles: List[CalledAllele]):
             np.fromiter((a.num_no_calls for a in alleles), np.int64, n),
             np.fromiter((a.sum_of_base_quality for a in alleles),
                         np.float64, n))
+
+
+def _no_snvs() -> SnvCandidateBatch:
+    """A batch of no SNV rows."""
+    pos = np.zeros(0, np.int64)
+    base = np.zeros(0, np.uint8)
+    sup = np.zeros((0, NUM_DIRECTION_TYPES), np.int64)
+    flag = np.zeros(0, bool)
+    return SnvCandidateBatch("", pos, base, base, sup, sup, flag, flag)
 
 
 def make_reference_candidates(chrom: str, refseq: np.ndarray, pc: PileupCounts,

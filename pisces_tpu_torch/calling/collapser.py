@@ -38,8 +38,8 @@ class VariantCollapser:
         called.total_coverage = cov.total_coverage
         return called.frequency
 
-    def collapse(self, candidates: List[Candidate], source: AlleleSource,
-                 max_cleared_position: Optional[int]) -> List[Candidate]:
+    def collapse(self, candidates: List[Candidate],
+                 source: AlleleSource) -> List[Candidate]:
         if self.exclude_mnvs:
             targets = [c for c in candidates if c.category != AlleleCategory.MNV]
         else:
@@ -81,18 +81,7 @@ class VariantCollapser:
                 self._merge(match, cand)
                 removed.add(id(cand))
         if removed:
-            targets = [v for v in targets if id(v) not in removed]
             candidates = [v for v in candidates if id(v) not in removed]
-
-        if max_cleared_position is not None:
-            not_cleared = [c for c in candidates
-                           if c.position > max_cleared_position
-                           and c.category != AlleleCategory.REFERENCE]
-            candidates = [c for c in candidates if c not in not_cleared]
-            # In batch mode the caller re-queues these into the next region
-            self.not_cleared = not_cleared
-        else:
-            self.not_cleared = []
         return candidates
 
     def _annotate_known(self, candidates: List[Candidate]) -> None:

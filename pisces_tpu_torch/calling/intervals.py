@@ -78,10 +78,6 @@ class ChrIntervalSet:
             out.append((max(r.start, start), min(r.end, end)))
         return out
 
-    @property
-    def max_position(self) -> int:
-        return int(self._ends[-1]) if self.regions else 0
-
 
 def read_picard_intervals(path: str) -> Dict[str, List[Region]]:
     """Parse picard-style interval files (chr\\tstart\\tend...; 1-based)."""

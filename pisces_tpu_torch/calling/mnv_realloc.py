@@ -2,11 +2,12 @@
 
 Reference: exe/Pisces/Logic/VariantCalling/MnvReallocator.cs:12-513. Failed
 MNVs donate support to overlapping callable sub-alleles; remainders break
-down to SNVs; pieces spanning a block edge spill to the next block.
+down to SNVs. The caller runs one block a chromosome or window, so no piece
+spills past a block edge into the next block.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
@@ -15,7 +16,7 @@ from pisces_tpu_torch.calling.alleles import CalledAllele
 
 
 def _create_variant(chrom: str, position: int, support: int, alternate: str,
-                    reference: str, support_by_dir=None) -> CalledAllele:
+                    reference: str, support_by_dir) -> CalledAllele:
     if alternate.upper() == reference.upper():
         cat = AlleleCategory.REFERENCE
     else:
@@ -24,8 +25,7 @@ def _create_variant(chrom: str, position: int, support: int, alternate: str,
     a.allele_support = support
     a.genotype = (Genotype.HOMOZYGOUS_REF if cat == AlleleCategory.REFERENCE
                   else Genotype.HETEROZYGOUS_ALT_REF)
-    if support_by_dir is not None:
-        a.support_by_direction = np.array(support_by_dir, dtype=np.int64).copy()
+    a.support_by_direction = np.array(support_by_dir, dtype=np.int64).copy()
     return a
 
 
@@ -111,35 +111,20 @@ def _alleles_from_remainder(overlap: CalledAllele,
     return out
 
 
-def _process_overlap(block_max_pos: Optional[int], overlap: CalledAllele,
-                     failed: CalledAllele, remainder_alleles: List[CalledAllele],
-                     outside: List[CalledAllele]) -> None:
+def _process_overlap(overlap: CalledAllele, failed: CalledAllele,
+                     remainder_alleles: List[CalledAllele]) -> None:
     overlap.allele_support += failed.allele_support
     overlap.support_by_direction = (overlap.support_by_direction
                                     + failed.support_by_direction)
     remainder_alleles.remove(failed)
-    remainders = _alleles_from_remainder(overlap, failed)
-    if block_max_pos is not None:
-        if overlap.position > block_max_pos:
-            if overlap in remainder_alleles:
-                remainder_alleles.remove(overlap)
-            outside.append(overlap)
-        for r in remainders:
-            if r.position <= block_max_pos:
-                remainder_alleles.append(r)
-            else:
-                outside.append(r)
-    else:
-        remainder_alleles.extend(remainders)
+    remainder_alleles.extend(_alleles_from_remainder(overlap, failed))
 
 
 def reallocate_failed_mnvs(failed_mnvs: List[CalledAllele],
-                           callable_alleles: List[CalledAllele],
-                           block_max_pos: Optional[int] = None
-                           ) -> List[CalledAllele]:
-    """MnvReallocator.ReallocateFailedMnvs; returns alleles spilled past
-    block_max_pos for the next region."""
-    outside: List[CalledAllele] = []
+                           callable_alleles: List[CalledAllele]) -> None:
+    """MnvReallocator.ReallocateFailedMnvs: each failed MNV gives its
+    support to the longest matching callable allele it overlaps, and what
+    is left of it breaks down into SNVs appended to callable_alleles."""
     ordered_failed = sorted(
         failed_mnvs,
         key=lambda a: (a.position, -len(a.alt_allele), -a.allele_support,
@@ -154,40 +139,11 @@ def reallocate_failed_mnvs(failed_mnvs: List[CalledAllele],
                              key=lambda a: (-len(a.alt_allele), -a.allele_support,
                                             a.alt_allele, a.ref_allele))
             matching = [o for o in ordered if _overlap_matches(o, allele)]
-            reallocated = False
-
-            if block_max_pos is not None:
-                dist = (allele.position + len(allele.alt_allele) - 1
-                        - block_max_pos)
-                if dist > 0 and not any(len(o.alt_allele) > 1 for o in matching):
-                    if allele.position <= block_max_pos:
-                        coord = block_max_pos + 1
-                        orig_len = len(allele.ref_allele)
-                        nb = _create_variant(
-                            allele.chromosome, coord, 0,
-                            allele.alt_allele[orig_len - dist:orig_len],
-                            allele.ref_allele[orig_len - dist:orig_len])
-                        nb_variants = break_off_edge_references(nb)
-                        _process_overlap(block_max_pos, nb_variants[0], allele,
-                                         remainder_alleles, outside)
-                    else:
-                        remainder_alleles.remove(allele)
-                        outside.append(allele)
-                    reallocated = True
-
-            if not reallocated and matching:
-                _process_overlap(block_max_pos, matching[0], allele,
-                                 remainder_alleles, outside)
-                reallocated = True
-
-            if not reallocated:
-                for snv in _breakdown_to_snvs(allele):
-                    if block_max_pos is not None and snv.position > block_max_pos:
-                        outside.append(snv)
-                    else:
-                        callable_alleles.append(snv)
+            if matching:
+                _process_overlap(matching[0], allele, remainder_alleles)
+            else:
+                callable_alleles.extend(_breakdown_to_snvs(allele))
                 remainder_alleles.remove(allele)
-    return outside
 
 
 def get_ref_support_from_gapped_mnvs(callable_alleles: List[CalledAllele]):

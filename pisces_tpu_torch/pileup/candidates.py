@@ -293,9 +293,10 @@ def find_candidates_read(
     return candidates
 
 
-def _annotate_open_ends(candidates: List[Candidate], pos1: int, max_position: int,
+def _annotate_open_ends(candidates: List[Candidate], pos1: int, end1: int,
                         ops: np.ndarray, lens: np.ndarray) -> None:
-    """CandidateVariantFinder.Annotate (cs:496-553)."""
+    """CandidateVariantFinder.Annotate (cs:496-553): `pos1` and `end1` are
+    the read's first and last aligned reference positions, 1-based."""
     if not candidates or len(ops) == 0:
         return
     first_op = int(ops[0])
@@ -318,14 +319,14 @@ def _annotate_open_ends(candidates: List[Candidate], pos1: int, max_position: in
                 c.open_on_left = True
 
         if last_op in (OP_M, 7, 8):
-            if (c.position + len(c.alt_allele) - 1 == max_position and
+            if (c.position + len(c.alt_allele) - 1 == end1 and
                     c.category in (AlleleCategory.MNV, AlleleCategory.SNV)):
                 c.open_on_right = True
         elif last_op == OP_I:
-            if c.position == max_position and c.category == AlleleCategory.INSERTION:
+            if c.position == end1 and c.category == AlleleCategory.INSERTION:
                 c.open_on_right = True
         elif last_op == OP_D:
-            if c.position == max_position and c.category == AlleleCategory.DELETION:
+            if c.position == end1 and c.category == AlleleCategory.DELETION:
                 c.open_on_right = True
 
 

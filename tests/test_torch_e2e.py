@@ -31,6 +31,7 @@ counterparts of the reference package's __graft_entry__, are held against
 it.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,12 +40,14 @@ import pytest
 import torch
 
 import conftest  # noqa: F401  (keeps JAX on the CPU)
+import pisces_tpu.calling.caller as jax_caller
 import pisces_tpu.calling.fast_gvcf as jax_fast_gvcf
 import pisces_tpu.io.native as jax_native
 from pisces_tpu.apps.pisces import main as jax_main
 import numpy as np
 
 import pisces_tpu_torch.apps.pisces as torch_app
+import pisces_tpu_torch.calling.caller as torch_caller
 import pisces_tpu_torch.calling.fast_gvcf as torch_fast_gvcf
 import pisces_tpu_torch.io.native as torch_native
 from pisces_tpu_torch import entry as torch_entry
@@ -65,9 +68,21 @@ def workload(tmp_path_factory):
     return tmp, bam, genome, intervals
 
 
+def candidate_batches_on_device(monkeypatch):
+    """Both callers' candidate-batch device threshold at 1: the port's
+    DEVICE_BATCH_THRESHOLD and the reference package's CallerConfig
+    field."""
+    monkeypatch.setattr(torch_caller, "DEVICE_BATCH_THRESHOLD", 1)
+    ref_config = jax_caller.CallerConfig.from_options
+    monkeypatch.setattr(
+        jax_caller.CallerConfig, "from_options",
+        classmethod(lambda cls, options: dataclasses.replace(
+            ref_config(options), device_batch_threshold=1)))
+
+
 @pytest.fixture
 def device_everywhere(monkeypatch):
-    monkeypatch.setenv("PISCES_DEVICE_BATCH_THRESHOLD", "1")
+    candidate_batches_on_device(monkeypatch)
     monkeypatch.setattr(jax_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     monkeypatch.setattr(torch_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
 

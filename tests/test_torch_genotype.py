@@ -276,7 +276,8 @@ def test_adaptive_gvcf_in_intervals_matches_jax(workload, device_everywhere,
 
 @pytest.fixture
 def device_everywhere(monkeypatch):
-    monkeypatch.setenv("PISCES_DEVICE_BATCH_THRESHOLD", "1")
+    from test_torch_e2e import candidate_batches_on_device
+    candidate_batches_on_device(monkeypatch)
     monkeypatch.setattr(jax_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     monkeypatch.setattr(torch_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
 

@@ -221,7 +221,7 @@ def test_scheduled_run_spans_reach_their_sample(workload, tmp_path,
     threads; the five caller steps tile each allele_calling; the device
     branches (taken here on the CPU device) are card_round_trip spans."""
     bam, genome = workload["shallow"]
-    monkeypatch.setenv("PISCES_DEVICE_BATCH_THRESHOLD", "1")
+    monkeypatch.setattr(torch_caller, "DEVICE_BATCH_THRESHOLD", 1)
     monkeypatch.setattr(torch_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     root, spans = _sample(bam, genome, str(tmp_path / "o"),
                           ["-MaxThreads", "2"])
@@ -357,8 +357,8 @@ def test_profiledir_trace_holds_the_spans(workload, tmp_path):
 
 def _caller_run(bam, genome, out, extra, monkeypatch, objects_only):
     """One CLI run; returns its counters, the SNV rows left after each
-    collapse and the SNV alleles each call reported (objects_only: with
-    the caller's columnar path switched off)."""
+    collapse and the SNV alleles each call reported (objects_only: each
+    call given its SNV rows as objects)."""
     after_collapse, reported = [], []
     collapse = torch_collapser.VariantCollapser.collapse
     call = torch_caller.AlleleCaller.call
@@ -369,8 +369,10 @@ def _caller_run(bam, genome, out, extra, monkeypatch, objects_only):
                                   and not c.is_forced for c in kept))
         return kept
 
-    def spy_call(self, *a, **k):
-        by_position = call(self, *a, **k)
+    def spy_call(self, candidates, source, snvs=None):
+        if objects_only and snvs is not None:
+            candidates, snvs = snvs.to_candidates() + candidates, None
+        by_position = call(self, candidates, source, snvs)
         reported.append(sum(a.category == AlleleCategory.SNV
                             for lst in by_position.values() for a in lst))
         return by_position
@@ -378,9 +380,6 @@ def _caller_run(bam, genome, out, extra, monkeypatch, objects_only):
     with monkeypatch.context() as m:
         m.setattr(torch_collapser.VariantCollapser, "collapse", spy_collapse)
         m.setattr(torch_caller.AlleleCaller, "call", spy_call)
-        if objects_only:
-            m.setattr(torch_caller.AlleleCaller, "_columns_apply",
-                      lambda self, *a: False)
         _sample(bam, genome, out, extra)
     return metrics.snapshot()["counters"], after_collapse, reported
 

@@ -166,11 +166,10 @@ def test_mnv_triage_matches_jax(phased, monkeypatch):
         realloc = mod.reallocate_failed_mnvs
         gapped = mod.get_ref_support_from_gapped_mnvs
 
-        def spy_realloc(failed, callable_alleles, max_position, _f=realloc,
-                        _log=log):
+        def spy_realloc(failed, *args, _f=realloc, _log=log):
             _log.append(("failed", sorted((a.position, a.ref_allele,
                                            a.alt_allele) for a in failed)))
-            return _f(failed, callable_alleles, max_position)
+            return _f(failed, *args)
 
         def spy_gapped(alleles, _f=gapped, _log=log):
             out = _f(alleles)

@@ -90,7 +90,9 @@ def _four_runs(tmp, tag, bam, genome, gvcf, flags):
 def panel(tmp_path_factory):
     """Two 20 kb chromosomes of the messy workload, indexed, with a
     forced-allele VCF (called SNVs, reference loci without support, one
-    locus with two alts) and a priors VCF (called SNVs, padded MNVs)."""
+    locus with two alts), a priors VCF (called SNVs, padded MNVs) and a
+    forced-allele VCF holding both the forced sites and the padded
+    MNVs."""
     tmp = str(tmp_path_factory.mktemp("opts"))
     bam, genome = synthetic.write_synthetic_workload(tmp, 2, 20_000, 6_000,
                                                      seed=1, index=True)
@@ -103,12 +105,16 @@ def panel(tmp_path_factory):
             body, g.get_chr_reference(chrom).sequence, chrom, 24, seed=k)
         forced += f
         priors += p
+    mnvs = [p for p in priors if len(p[2]) > 1]
     return dict(
         tmp=tmp, bam=bam, genome=genome,
         forced=synthetic.write_sites_vcf(os.path.join(tmp, "forced.vcf"),
                                          forced),
         priors=synthetic.write_sites_vcf(os.path.join(tmp, "priors.vcf"),
-                                         priors))
+                                         priors),
+        mnvs=mnvs,
+        forced_mnvs=synthetic.write_sites_vcf(
+            os.path.join(tmp, "forced_mnvs.vcf"), sorted(forced + mnvs)))
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +151,33 @@ def test_forced_alleles_match_jax(panel, device_everywhere, flow, gvcf,
                       panel["genome"], gvcf,
                       ["-ForcedAlleles", panel["forced"], "-CrushVcf", crush])
     _assert_forced_reported(port)
+
+
+@pytest.mark.parametrize("gvcf", ["true", "false"])
+def test_forced_mnvs_match_jax(panel, device_everywhere, monkeypatch, gvcf):
+    """-ForcedAlleles with padded MNVs beside the SNV forced sites, on the
+    native flow: a forced MNV makes the caller take the native flow's SNV
+    rows as objects (MNV triage reads every SNV allele), and the forced
+    MNVs are reported."""
+    from pisces_tpu_torch.pileup.candidates_fast import SnvCandidateBatch
+    as_objects = []
+    to_candidates = SnvCandidateBatch.to_candidates
+
+    def spy(self):
+        as_objects.append(len(self))
+        return to_candidates(self)
+
+    monkeypatch.setattr(SnvCandidateBatch, "to_candidates", spy)
+    port = _four_runs(panel["tmp"], f"fm{gvcf}", panel["bam"],
+                      panel["genome"], gvcf,
+                      ["-ForcedAlleles", panel["forced_mnvs"]])
+    _assert_forced_reported(port)
+    # both port runs, each chromosome's rows
+    assert len(as_objects) == 4 and min(as_objects) > 0
+    reported = {(f[0], int(f[1]), f[3], f[4])
+                for f in (ln.split("\t") for ln in port)
+                if "ForcedReport" in f[6]}
+    assert reported & set(panel["mnvs"])
 
 
 @pytest.mark.parametrize("trim", ["true", "false"])

@@ -32,6 +32,7 @@ from pisces_tpu_torch.io.vcf_write import VcfWriter, VcfWriterConfig
 from pisces_tpu_torch.ops import scoring_kernels as K
 from pisces_tpu_torch.options import PiscesApplicationOptions
 from pisces_tpu_torch.synthetic import write_synthetic_workload
+from test_torch_e2e import candidate_batches_on_device
 
 WINDOWS = ["5000", "7777"]
 
@@ -167,7 +168,7 @@ def test_pipelined_windows_equal_serial(workload, tmp_path, flow):
 def test_windowed_matches_reference_windowed(workload, whole_runs,
                                              monkeypatch, backend):
     tmp, bam, genome, _ = workload
-    monkeypatch.setenv("PISCES_DEVICE_BATCH_THRESHOLD", "1")
+    candidate_batches_on_device(monkeypatch)
     monkeypatch.setattr(jax_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     monkeypatch.setattr(torch_fast_gvcf, "DEVICE_TUPLE_THRESHOLD", 1)
     w = ["-WindowSize", "5000"]
