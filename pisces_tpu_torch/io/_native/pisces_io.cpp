@@ -20,7 +20,9 @@
 #include <memory>
 #include <unordered_map>
 #include <string>
+#include <system_error>
 #include <thread>
+#include <utility>
 #include <vector>
 
 #include <zlib.h>
@@ -104,16 +106,41 @@ const bool kConsumesRead[9] = {true, true, false, false, true,
 const bool kConsumesRef[9] = {true, false, true, true, false,
                               false, false, true, true};
 
+// An allocator whose resize leaves new elements uninitialised: the pileup
+// pass's slabs zero their own parts of its dense buffers, on their threads.
+template <class T>
+struct NoInitAllocator : std::allocator<T> {
+  template <class U>
+  struct rebind {
+    using other = NoInitAllocator<U>;
+  };
+  NoInitAllocator() = default;
+  template <class U>
+  NoInitAllocator(const NoInitAllocator<U>&) noexcept {}
+  template <class U>
+  void construct(U* p) noexcept {
+    ::new ((void*)p) U;
+  }
+  template <class U, class... Args>
+  void construct(U* p, Args&&... args) {
+    ::new ((void*)p) U(std::forward<Args>(args)...);
+  }
+};
+template <class T>
+using DenseBuf = std::vector<T, NoInitAllocator<T>>;
+
 // Per-handle pileup accumulation result (RegionStateManager block tensors).
 // Owned by the BamFile handle so concurrent pileups over distinct handles
 // never share state (reference discipline: one job owns one block,
 // RegionStateManager.cs:336-439).
 struct PileupResult {
   std::vector<int64_t> block_keys;
-  std::vector<int32_t> counts_t;   // [nb * block_size * 6 * 3]
-  std::vector<double> qual_t;      // same shape
-  std::vector<int32_t> anchored_counts;  // [K * 6 * 3 * (2A+1)]
-  std::vector<double> anchored_quals;
+  DenseBuf<int32_t> counts_t;   // [nb * block_size * 6 * 3]
+  DenseBuf<double> qual_t;      // same shape
+  DenseBuf<int32_t> anchored_counts;  // [K * 6 * 3 * (2A+1)]
+  DenseBuf<double> anchored_quals;
+  int64_t n_slabs = 0;        // the slabs the last pass ran in
+  std::vector<size_t> kept;   // the last pass's kept reads (scratch)
   // SNV mismatch events (candidate discovery, call_mnvs=false rules)
   std::vector<int64_t> mm_gpos;
   std::vector<int8_t> mm_alt;
@@ -122,7 +149,7 @@ struct PileupResult {
   // per-position scoring tuples (when ref_codes given): 8 int32 per row
   // [sup_f, sup_r, sup_s, cov_f, cov_r, cov_s, n_total, 0] — everything the
   // gVCF reference scorer needs, so Python never re-reduces the dense tensor
-  std::vector<int32_t> pos_tuples;
+  DenseBuf<int32_t> pos_tuples;
   // gVCF dedup (pileup_gvcf_unique): covered in-reference positions, their
   // unique (sup, cov)-by-direction 6-tuples, and the per-position inverse
   // index (fast_gvcf.score_reference_positions contract)
@@ -135,7 +162,7 @@ struct BamFile {
   std::vector<uint8_t> udata;  // inflated content
   // header
   std::string text;
-  std::unique_ptr<PileupResult> pileup;  // last bam_pileup* result, per handle
+  std::unique_ptr<PileupResult> pileup;  // last pileup pass's result
   std::vector<std::string> ref_names;
   std::vector<int32_t> ref_lens;
   size_t records_start = 0;
@@ -977,10 +1004,18 @@ void bgzfc_free(void* h) { delete (BgzfCompressed*)h; }
 // Native pileup accumulation (RegionStateManager.AddAlleleCounts hot loop)
 // ---------------------------------------------------------------------------
 //
-// Walks the decoded columnar batch once, scattering every counted base
+// Walks the decoded columnar batch, scattering every counted base
 // (including deletion gaps and terminal deletions) into block-tiled
 // anchor-summed totals plus sparse anchor-resolved rows, exactly matching
 // the Python pileup/events.py + pileup/counts.py semantics.
+//
+// The touched blocks are cut into slabs of whole blocks, one thread a slab.
+// A slab owns a contiguous range of positions: it walks, in batch order, the
+// kept reads that meet its range, and applies only the adds and mismatch
+// events at positions it owns. Every position has one owner, so its f64
+// quality sums add in read order at any slab count, and the dense outputs
+// are the one-slab pass's bit for bit. The mismatch events come out slab
+// after slab: the one-slab pass's multiset, in another order.
 
 namespace {
 
@@ -1002,83 +1037,84 @@ const std::array<double, 128> kQualToErr = [] {
   return t;
 }();
 
-}  // namespace
-
-extern "C" {
-
-int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
-                      int block_size, const int64_t* anchored_pos,
-                      int64_t n_anchored, const int8_t* base_dirs,
-                      const int8_t* ref_codes, int64_t ref_len,
-                      int track_open_ended);
-
-// Accumulate pileup counts for the decoded batch in handle h.
-// keep: uint8 [n] mask; anchored_pos: sorted int64 [n_anchored].
-// base_dirs: optional int8 per sequenced base (stitched XD); null = strand.
-int64_t bam_pileup(void* h, const uint8_t* keep, int min_bq, int anchor_size,
-                   int block_size, const int64_t* anchored_pos,
-                   int64_t n_anchored, const int8_t* base_dirs) {
-  return bam_pileup_mm(h, keep, min_bq, anchor_size, block_size, anchored_pos,
-                       n_anchored, base_dirs, nullptr, 0, 0);
+// Resize a result buffer without zeroing it (its slabs zero their own
+// parts, on their own threads); a buffer too small is replaced, not copied.
+template <class V>
+void size_uninit(V& v, size_t n) {
+  if (n > v.capacity()) V().swap(v);
+  v.resize(n);
 }
 
-// Full pass: pileup accumulation + SNV mismatch extraction when a reference
-// sequence (allele codes) is supplied. track_open_ended enables the open-end
-// flags (bad-next-base flush + read-boundary annotation).
-int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
-                      int block_size, const int64_t* anchored_pos,
-                      int64_t n_anchored, const int8_t* base_dirs,
-                      const int8_t* ref_codes, int64_t ref_len,
-                      int track_open_ended) {
-  auto* bf = (BamFile*)h;
-  // reuse the handle's result buffers across calls: .assign() below keeps
-  // the existing allocations, so repeat pileups memset warm pages instead
-  // of faulting ~30k fresh pages per call (the dense dual tensors are
-  // ~130 MB at WES shapes; fault cost dominated round-3 profiles)
-  if (!bf->pileup) bf->pileup = std::make_unique<PileupResult>();
-  auto& res = *bf->pileup;
-  res.mm_gpos.clear();
-  res.mm_alt.clear();
-  res.mm_dir.clear();
-  res.mm_flags.clear();
+// One slab of a pass: the positions [lo, hi] (1-based) it owns, the block
+// slots [s0, s1) and anchored rows [a0, a1) at those positions, the first
+// kept read that may reach lo, and its mismatch events. Aligned to a cache
+// line: each thread appends to its own vectors.
+struct alignas(64) Slab {
+  int64_t lo, hi;
+  int64_t s0, s1;
+  int64_t a0, a1;
+  size_t r0;
+  std::vector<int64_t> mm_gpos;
+  std::vector<int8_t> mm_alt, mm_dir, mm_flags;
+};
 
-  size_t n = bf->ref_id.size();
-  const int A = anchor_size;
-  const int K = 2 * A + 1;
+// What every slab of one pass reads; res's dense buffers are written at
+// the slab's own slots and rows only.
+struct PassInputs {
+  const BamFile* bf;
+  PileupResult* res;
+  bool sorted;  // the kept reads' starts never decrease
+  int min_bq, A, K;
+  int64_t block_size;
+  const int64_t* anchored_pos;
+  int64_t n_anchored;
+  const int8_t* base_dirs;
+  const int8_t* ref_codes;
+  int64_t ref_len;
+  bool track_open_ended;
+  // block key -> slot (-1 untouched) over the keys [kmin, kmin + n_span)
+  const int64_t* slot_of;
+  int64_t kmin, n_span;
+};
 
-  // pass 1: touched block keys
-  std::vector<int64_t> keys;
-  for (size_t i = 0; i < n; i++) {
-    if (!keep[i]) continue;
-    int64_t start1 = (int64_t)bf->pos[i] + 1;
-    int64_t end1 = (int64_t)bf->end_pos[i] + 1;
-    int64_t k0 = (start1 + block_size - 1) / block_size;
-    int64_t k1 = (end1 + block_size - 1) / block_size;
-    for (int64_t k = k0; k <= k1; k++) keys.push_back(k);
-  }
-  std::sort(keys.begin(), keys.end());
-  keys.erase(std::unique(keys.begin(), keys.end()), keys.end());
-  res.block_keys = keys;
-  int64_t nb = (int64_t)keys.size();
-  res.counts_t.assign(nb * block_size * 18, 0);
-  res.qual_t.assign(nb * block_size * 18, 0.0);
-  res.anchored_counts.assign(n_anchored * 18 * K, 0);
-  res.anchored_quals.assign(n_anchored * 18 * K, 0.0);
+void walk_slab(const PassInputs& p, Slab& s) {
+  const BamFile* bf = p.bf;
+  PileupResult& res = *p.res;
+  const int64_t block_size = p.block_size;
+  const int A = p.A, K = p.K, min_bq = p.min_bq;
+  const int64_t lo = s.lo, hi = s.hi;
+  const int8_t* base_dirs = p.base_dirs;
+  const int8_t* ref_codes = p.ref_codes;
+  const int64_t ref_len = p.ref_len;
+  const int64_t* anchored_pos = p.anchored_pos;
+  const int64_t n_anchored = p.n_anchored;
+  int32_t* counts = res.counts_t.data();
+  double* quals = res.qual_t.data();
+  int32_t* acounts = res.anchored_counts.data();
+  double* aquals = res.anchored_quals.data();
+  std::fill(counts + s.s0 * block_size * 18, counts + s.s1 * block_size * 18,
+            0);
+  std::fill(quals + s.s0 * block_size * 18, quals + s.s1 * block_size * 18,
+            0.0);
+  std::fill(acounts + s.a0 * 18 * K, acounts + s.a1 * 18 * K, 0);
+  std::fill(aquals + s.a0 * 18 * K, aquals + s.a1 * 18 * K, 0.0);
 
-  // block lookup memoized per key: consecutive bases almost always stay in
-  // the same 1000-bp block, so the binary search runs ~once per block
-  // transition instead of once per base
-  int64_t memo_key = -1;
-  int64_t memo_slot = -1;
+  // the positions [m_lo, m_hi] of the last block found start at row
+  // m_row0: consecutive bases almost always stay in one 1000-bp block, so
+  // the key's division and slot lookup run about once a block transition
+  int64_t m_lo = 1, m_hi = 0, m_row0 = 0;
   auto row_of = [&](int64_t gpos) -> int64_t {
+    if (gpos >= m_lo && gpos <= m_hi) return m_row0 + (gpos - m_lo);
     int64_t key = (gpos + block_size - 1) / block_size;
-    if (key != memo_key) {
-      auto it = std::lower_bound(keys.begin(), keys.end(), key);
-      memo_key = key;
-      memo_slot = (it == keys.end() || *it != key) ? -1 : (it - keys.begin());
+    int64_t j = key - p.kmin;
+    int64_t slot = (j >= 0 && j < p.n_span) ? p.slot_of[j] : -1;
+    if (slot < 0) return -1;
+    if (key >= 1) {
+      m_lo = (key - 1) * block_size + 1;
+      m_hi = key * block_size;
+      m_row0 = slot * block_size;
     }
-    if (memo_slot < 0) return -1;
-    return memo_slot * block_size + (gpos - 1) % block_size;
+    return slot * block_size + (gpos - 1) % block_size;
   };
   const int64_t anch_lo = n_anchored ? anchored_pos[0] : 0;
   const int64_t anch_hi = n_anchored ? anchored_pos[n_anchored - 1] : -1;
@@ -1086,7 +1122,7 @@ int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
   // gpos order (sorted reads, in-read walks), so the hint advances O(1)
   // per event instead of a fresh binary search per base (~12 probes per
   // event over a WGS window's anchored set)
-  int64_t a_hint = 0;
+  int64_t a_hint = s.a0;
   auto anchored_of = [&](int64_t gpos) -> int64_t {
     if (gpos < anch_lo || gpos > anch_hi) return -1;  // covers n_anchored==0
     if (a_hint >= n_anchored || anchored_pos[a_hint] < gpos ||
@@ -1103,24 +1139,31 @@ int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
     return -1;
   };
   auto add = [&](int64_t gpos, int allele, int dir, int anchor, double qerr) {
+    if (gpos < lo || gpos > hi) return;  // another slab's position
     int64_t row = row_of(gpos);
     if (row >= 0) {
       int64_t idx = (row * 6 + allele) * 3 + dir;
-      res.counts_t[idx] += 1;
-      res.qual_t[idx] += qerr;
+      counts[idx] += 1;
+      quals[idx] += qerr;
     }
     int64_t ar = anchored_of(gpos);
     if (ar >= 0) {
       int64_t idx = ((ar * 6 + allele) * 3 + dir) * K + anchor;
-      res.anchored_counts[idx] += 1;
-      res.anchored_quals[idx] += qerr;
+      acounts[idx] += 1;
+      aquals[idx] += qerr;
     }
   };
 
-  for (size_t i = 0; i < n; i++) {
-    if (!keep[i]) continue;
+  const std::vector<size_t>& kept = res.kept;
+  for (size_t r = s.r0; r < kept.size(); r++) {
+    size_t i = kept[r];
     int64_t start1 = (int64_t)bf->pos[i] + 1;
     int64_t end1 = (int64_t)bf->end_pos[i] + 1;
+    if (start1 > hi) {
+      if (p.sorted) break;
+      continue;
+    }
+    if (end1 < lo) continue;
     int64_t co = bf->cigar_off[i], ce = bf->cigar_off[i + 1];
     int64_t so = bf->seq_off[i], se = bf->seq_off[i + 1];
     int64_t read_len = se - so;
@@ -1180,13 +1223,14 @@ int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
           for (int32_t k = 0; k < ln; k++) {
             int64_t gpos = ref2 + k;
             if (gpos > ref_len) break;
+            if (gpos < lo || gpos > hi) continue;  // another slab's position
             int64_t sidx = so + rd2 + k;
             int8_t rc = ref_codes[gpos - 1];
             int8_t bc = bf->seq[sidx];
             uint8_t q = bf->qual[sidx];
             if (q < min_bq || bc == 4 || rc == 4 || bc == rc) continue;
             bool open_l = false, open_r = false;
-            if (track_open_ended) {
+            if (p.track_open_ended) {
               // state machine: next base in the same M op is bad
               if (k + 1 < ln && gpos + 1 <= ref_len) {
                 int64_t nidx = sidx + 1;
@@ -1201,11 +1245,11 @@ int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
             int64_t right = end1 - gpos;
             bool wa = (left < right ? left : right) > 0;
             int dir = base_dirs ? base_dirs[sidx] : dir_uniform;
-            res.mm_gpos.push_back(gpos);
-            res.mm_alt.push_back(bc);
-            res.mm_dir.push_back((int8_t)dir);
-            res.mm_flags.push_back((int8_t)((open_r ? 1 : 0) |
-                                            (open_l ? 2 : 0) | (wa ? 4 : 0)));
+            s.mm_gpos.push_back(gpos);
+            s.mm_alt.push_back(bc);
+            s.mm_dir.push_back((int8_t)dir);
+            s.mm_flags.push_back((int8_t)((open_r ? 1 : 0) |
+                                          (open_l ? 2 : 0) | (wa ? 4 : 0)));
           }
           ref2 += ln;
           rd2 += ln;
@@ -1240,29 +1284,188 @@ int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
   }
 
   // per-position gVCF scoring tuples (sup/cov by direction + N total)
-  if (ref_codes) {
-    res.pos_tuples.assign(nb * block_size * 8, 0);
-    for (int64_t slot = 0; slot < nb; slot++) {
-      int64_t base_pos = (keys[slot] - 1) * block_size;  // 0-based
-      for (int64_t off = 0; off < block_size; off++) {
-        int64_t gpos0 = base_pos + off;
-        const int32_t* cnt = &res.counts_t[(slot * block_size + off) * 18];
-        int32_t* out = &res.pos_tuples[(slot * block_size + off) * 8];
-        int ref_allele = (gpos0 < ref_len) ? ref_codes[gpos0] : -1;
-        for (int d = 0; d < 3; d++) {
-          if (ref_allele >= 0) out[d] = cnt[ref_allele * 3 + d];
-          // coverage alleles: A,G,C,T (0-3) + deletion (5); N (4) excluded
-          out[3 + d] = cnt[0 * 3 + d] + cnt[1 * 3 + d] + cnt[2 * 3 + d] +
-                       cnt[3 * 3 + d] + cnt[5 * 3 + d];
-          out[6] += cnt[4 * 3 + d];
-        }
+  if (!ref_codes) return;
+  const int64_t* keys = res.block_keys.data();
+  for (int64_t slot = s.s0; slot < s.s1; slot++) {
+    int64_t base_pos = (keys[slot] - 1) * block_size;  // 0-based
+    for (int64_t off = 0; off < block_size; off++) {
+      int64_t gpos0 = base_pos + off;
+      const int32_t* cnt = &counts[(slot * block_size + off) * 18];
+      int32_t* out = &res.pos_tuples[(slot * block_size + off) * 8];
+      int ref_allele = (gpos0 < ref_len) ? ref_codes[gpos0] : -1;
+      out[6] = 0;
+      out[7] = 0;
+      for (int d = 0; d < 3; d++) {
+        out[d] = ref_allele >= 0 ? cnt[ref_allele * 3 + d] : 0;
+        // coverage alleles: A,G,C,T (0-3) + deletion (5); N (4) excluded
+        out[3 + d] = cnt[0 * 3 + d] + cnt[1 * 3 + d] + cnt[2 * 3 + d] +
+                     cnt[3 * 3 + d] + cnt[5 * 3 + d];
+        out[6] += cnt[4 * 3 + d];
       }
     }
-  } else {
-    res.pos_tuples.clear();
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Full pass over the decoded batch in handle h: pileup accumulation, and
+// SNV mismatch extraction and scoring tuples when a reference sequence
+// (allele codes) is supplied. keep: uint8 [n] mask; anchored_pos: sorted
+// int64 [n_anchored]; base_dirs: optional int8 per sequenced base (stitched
+// XD), null = strand. track_open_ended enables the open-end flags
+// (bad-next-base flush + read-boundary annotation). The pass runs in
+// min(max_slabs, touched blocks / min_slab_blocks) slabs, at least one;
+// pileup_n_slabs gives the count. Returns the number of touched blocks.
+int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq, int anchor_size,
+                      int block_size, const int64_t* anchored_pos,
+                      int64_t n_anchored, const int8_t* base_dirs,
+                      const int8_t* ref_codes, int64_t ref_len,
+                      int track_open_ended, int max_slabs,
+                      int min_slab_blocks) {
+  auto* bf = (BamFile*)h;
+  // reuse the handle's result buffers across calls: repeat pileups write
+  // warm pages instead of faulting ~30k fresh pages per call (the dense
+  // dual tensors are ~130 MB at WES shapes; fault cost dominated round-3
+  // profiles)
+  if (!bf->pileup) bf->pileup = std::make_unique<PileupResult>();
+  auto& res = *bf->pileup;
+  const size_t n = bf->ref_id.size();
+  const int64_t bs = block_size;
+
+  // pass 1: the kept reads, the block keys they span, their longest
+  // reference span, and whether their starts are sorted
+  std::vector<size_t>& kept = res.kept;
+  kept.clear();
+  int64_t kmin = 0, kmax = -1, max_span = 0;
+  int64_t prev_start = INT64_MIN;
+  bool sorted = true;
+  for (size_t i = 0; i < n; i++) {
+    if (!keep[i]) continue;
+    int64_t start1 = (int64_t)bf->pos[i] + 1;
+    int64_t end1 = (int64_t)bf->end_pos[i] + 1;
+    int64_t k0 = (start1 + bs - 1) / bs;
+    int64_t k1 = (end1 + bs - 1) / bs;
+    if (kept.empty()) {
+      kmin = k0;
+      kmax = k1;
+    }
+    kmin = std::min(kmin, k0);
+    kmax = std::max(kmax, k1);
+    max_span = std::max(max_span, end1 - start1);
+    sorted = sorted && start1 >= prev_start;
+    prev_start = start1;
+    kept.push_back(i);
+  }
+  // one mark a block of the span: the reads touching it, then its slot
+  const int64_t n_span = kmax - kmin + 1;
+  std::vector<int64_t> slot_of(n_span, 0);
+  for (size_t i : kept) {
+    int64_t k0 = ((int64_t)bf->pos[i] + bs) / bs;
+    int64_t k1 = ((int64_t)bf->end_pos[i] + bs) / bs;
+    for (int64_t k = k0; k <= k1; k++) slot_of[k - kmin]++;
+  }
+  std::vector<int64_t>& keys = res.block_keys;
+  keys.clear();
+  std::vector<int64_t> weight_before{0};  // reads-by-blocks before each slot
+  for (int64_t j = 0; j < n_span; j++) {
+    if (slot_of[j] == 0) {
+      slot_of[j] = -1;
+      continue;
+    }
+    weight_before.push_back(weight_before.back() + slot_of[j]);
+    slot_of[j] = (int64_t)keys.size();
+    keys.push_back(kmin + j);
+  }
+  const int64_t nb = (int64_t)keys.size();
+  const int K = 2 * anchor_size + 1;
+  size_uninit(res.counts_t, nb * bs * 18);
+  size_uninit(res.qual_t, nb * bs * 18);
+  size_uninit(res.anchored_counts, n_anchored * 18 * K);
+  size_uninit(res.anchored_quals, n_anchored * 18 * K);
+  if (ref_codes)
+    size_uninit(res.pos_tuples, nb * bs * 8);
+  else
+    res.pos_tuples.clear();
+
+  // slabs of whole blocks, cut where the reads-by-blocks weight reaches
+  // each slab's even share (depth differs between a panel's targets), at
+  // least one block a slab
+  const int64_t n_slabs = std::max<int64_t>(
+      1, std::min<int64_t>(max_slabs, nb / std::max(min_slab_blocks, 1)));
+  std::vector<int64_t> cut(n_slabs + 1, nb);
+  cut[0] = 0;
+  for (int64_t s = 1; s < n_slabs; s++) {
+    int64_t share = weight_before[nb] * s / n_slabs;
+    int64_t b = cut[s - 1] + 1;
+    while (b < nb - (n_slabs - s) && weight_before[b] < share) b++;
+    cut[s] = b;
+  }
+  std::vector<Slab> slabs(n_slabs);
+  for (int64_t s = 0; s < n_slabs; s++) {
+    Slab& sl = slabs[s];
+    sl.s0 = cut[s];
+    sl.s1 = cut[s + 1];
+    sl.lo = s == 0 ? INT64_MIN : (keys[sl.s0] - 1) * bs + 1;
+    sl.hi = s == n_slabs - 1 ? INT64_MAX : (keys[sl.s1] - 1) * bs;
+    sl.a0 = s == 0 ? 0
+                   : std::lower_bound(anchored_pos, anchored_pos + n_anchored,
+                                      sl.lo) - anchored_pos;
+    sl.a1 = s == n_slabs - 1
+                ? n_anchored
+                : std::lower_bound(anchored_pos, anchored_pos + n_anchored,
+                                   sl.hi + 1) - anchored_pos;
+    // in sorted batches a read starting before lo - max_span ends before lo
+    sl.r0 = 0;
+    if (sorted && s > 0)
+      sl.r0 = std::partition_point(kept.begin(), kept.end(), [&](size_t i) {
+                return (int64_t)bf->pos[i] + 1 < sl.lo - max_span;
+              }) - kept.begin();
+  }
+
+  // the first slab appends to the result's own (cleared) mismatch buffers
+  res.mm_gpos.clear();
+  res.mm_alt.clear();
+  res.mm_dir.clear();
+  res.mm_flags.clear();
+  slabs[0].mm_gpos.swap(res.mm_gpos);
+  slabs[0].mm_alt.swap(res.mm_alt);
+  slabs[0].mm_dir.swap(res.mm_dir);
+  slabs[0].mm_flags.swap(res.mm_flags);
+
+  const PassInputs in{bf, &res, sorted, min_bq, anchor_size, K, bs,
+                      anchored_pos, n_anchored, base_dirs, ref_codes,
+                      ref_len, track_open_ended != 0, slot_of.data(), kmin,
+                      n_span};
+  std::vector<std::thread> threads;
+  for (int64_t s = 1; s < n_slabs; s++) {
+    try {
+      threads.emplace_back(walk_slab, std::cref(in), std::ref(slabs[s]));
+    } catch (const std::system_error&) {  // no thread to be had: walk here
+      walk_slab(in, slabs[s]);
+    }
+  }
+  walk_slab(in, slabs[0]);
+  for (auto& t : threads) t.join();
+
+  res.mm_gpos.swap(slabs[0].mm_gpos);
+  res.mm_alt.swap(slabs[0].mm_alt);
+  res.mm_dir.swap(slabs[0].mm_dir);
+  res.mm_flags.swap(slabs[0].mm_flags);
+  for (int64_t s = 1; s < n_slabs; s++) {
+    const Slab& sl = slabs[s];
+    res.mm_gpos.insert(res.mm_gpos.end(), sl.mm_gpos.begin(), sl.mm_gpos.end());
+    res.mm_alt.insert(res.mm_alt.end(), sl.mm_alt.begin(), sl.mm_alt.end());
+    res.mm_dir.insert(res.mm_dir.end(), sl.mm_dir.begin(), sl.mm_dir.end());
+    res.mm_flags.insert(res.mm_flags.end(), sl.mm_flags.begin(),
+                        sl.mm_flags.end());
+  }
+  res.n_slabs = n_slabs;
   return nb;
 }
+
+int64_t pileup_n_slabs(void* h) { return ((BamFile*)h)->pileup->n_slabs; }
 
 // Dedup covered in-reference positions to unique scoring tuples (the
 // fast-gVCF hot reduction: every scoring output is a pure function of the

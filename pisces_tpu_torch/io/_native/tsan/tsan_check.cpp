@@ -4,7 +4,8 @@
 // BamFile handle but sharing the process (the reference's
 // one-job-owns-one-block discipline, RegionStateManager.cs:336-439). Each
 // -MaxThreads job runs the full pass: decode one chromosome, bam_pileup_mm
-// with its reference codes (counts, SNV mismatches, per-position tuples),
+// with its reference codes (counts, SNV mismatches, per-position tuples; in
+// slabs, each on a thread the pass starts),
 // then pileup_gvcf_unique (the gVCF tuple dedup). This harness drives that
 // shape from many threads at once, per-thread handles, under
 // -fsanitize=thread, so shared mutable state in pisces_io.cpp is reported
@@ -37,14 +38,12 @@ const int32_t* bam_col_pos(void* h);
 const int32_t* bam_col_end_pos(void* h);
 const uint8_t* bam_col_mapq(void* h);
 const uint16_t* bam_col_flag(void* h);
-int64_t bam_pileup(void* h, const uint8_t* keep, int min_bq, int anchor_size,
-                   int block_size, const int64_t* anchored_pos,
-                   int64_t n_anchored, const int8_t* base_dirs);
 int64_t bam_pileup_mm(void* h, const uint8_t* keep, int min_bq,
                       int anchor_size, int block_size,
                       const int64_t* anchored_pos, int64_t n_anchored,
                       const int8_t* base_dirs, const int8_t* ref_codes,
-                      int64_t ref_len, int track_open_ended);
+                      int64_t ref_len, int track_open_ended, int max_slabs,
+                      int min_slab_blocks);
 int64_t pileup_gvcf_unique(void* h, int block_size, int64_t ref_len);
 int64_t pileup_n_uniq(void* h);
 const int64_t* pileup_sel_positions(void* h);
@@ -64,6 +63,7 @@ const int8_t* pileup_mm_flags(void* h);
 namespace {
 
 constexpr int kBlock = 1000;
+constexpr int kSlabs = 3;  // every pass in three slabs, on threads of its own
 constexpr int kChannels = 6 * 3;  // allele types x directions
 
 struct Sums {
@@ -94,7 +94,8 @@ void add_counts(void* h, int64_t nb, Sums* s) {
 void whole_file(void* h, Sums* s) {
   int64_t n = bam_decode(h, -1);
   std::vector<uint8_t> keep(n, 1);
-  int64_t nb = bam_pileup(h, keep.data(), 20, 5, kBlock, nullptr, 0, nullptr);
+  int64_t nb = bam_pileup_mm(h, keep.data(), 20, 5, kBlock, nullptr, 0,
+                             nullptr, nullptr, 0, 0, kSlabs, 1);
   add_counts(h, nb, s);
 }
 
@@ -113,7 +114,7 @@ void one_chromosome(void* h, int r, const int8_t* codes, int64_t len,
     keep[i] = (flag[i] & 0x704) == 0 && mapq[i] > 0;  // the read filter
   }
   int64_t nb = bam_pileup_mm(h, keep.data(), 20, 5, kBlock, nullptr, 0,
-                             nullptr, codes, len, 1);
+                             nullptr, codes, len, 1, kSlabs, 1);
   add_counts(h, nb, s);
   int64_t n_mm = pileup_n_mismatches(h);
   const int64_t* gpos = pileup_mm_gpos(h);

@@ -47,7 +47,16 @@ LINK_FLAGS = ("-lz", "-lpthread")
 # native_pileup calls since the last reset (chip_smoke.py reads it to show
 # the main path took the native flow), counted under _count_lock
 pileup_calls = 0
+# pileup passes running in the library now, counted under _count_lock: the
+# scheduler's chromosome threads and pipelined windows run passes at once,
+# and share the cores between them
+_passes_in_flight = 0
 _count_lock = threading.Lock()
+# a pileup pass runs in slabs of at least this many touched blocks, one
+# thread a slab, so a test's 20 kb chromosome or a small window stays one
+MIN_SLAB_BLOCKS = 16
+# the most threads a native call starts (bam_open's inflate, a pass's slabs)
+MAX_NATIVE_THREADS = 16
 # guards the first build and every ctypes binding: two threads that start
 # them at once would each compile, or set signatures mid-call
 _lock = threading.Lock()
@@ -248,7 +257,10 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int8),
-        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int]
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int]
+    lib.pileup_n_slabs.restype = ctypes.c_int64
+    lib.pileup_n_slabs.argtypes = [ctypes.c_void_p]
     lib.pileup_n_mismatches.restype = ctypes.c_int64
     lib.pileup_n_mismatches.argtypes = [ctypes.c_void_p]
     lib.pileup_has_pos_tuples.restype = ctypes.c_int64
@@ -483,7 +495,8 @@ class NativeBamReader:
             # the whole file inflates here, in C++ threads
             with metrics.stage("bam_open"):
                 self._h = lib.bam_open(path.encode(),
-                                       min(os.cpu_count() or 1, 16))
+                                       min(os.cpu_count() or 1,
+                                           MAX_NATIVE_THREADS))
         if not self._h:
             raise IOError(f"failed to open {path}")
         n_refs = lib.bam_n_refs(self._h)
@@ -671,7 +684,8 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
                   ref_codes: Optional[np.ndarray] = None,
                   track_open_ended: bool = True,
                   block_size: int = REGION_SIZE,
-                  base_dirs: Optional[np.ndarray] = None):
+                  base_dirs: Optional[np.ndarray] = None,
+                  slabs: Optional[int] = None):
     """Run the C++ pileup pass, in blocks of block_size positions, over the
     reader's last fetched batch (`keep` is its read mask): the
     read events, their count and quality-error (f64) scatter, and, given
@@ -683,11 +697,20 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
     reads their per-base directions; without it each base takes its read's
     strand.
 
-    The dense tensors, tuples and mismatches are views into the handle's
-    buffers (tens of MB at panel depth): consume them before the handle's
-    next fetch or pileup. The gVCF positions are copied, since the
-    reference lines keep them until they are written."""
-    global pileup_calls
+    The pass runs in slabs of whole blocks, one thread a slab, each owning
+    the positions it covers: every output is the one-slab pass's bit for
+    bit, but the mismatch events come slab after slab (the same multiset).
+    The slab count is the usable CPUs (at most MAX_NATIVE_THREADS) shared
+    among the passes in flight, and at most one a MIN_SLAB_BLOCKS touched
+    blocks; `slabs` forces it instead (at most one a touched block). The
+    counters `pileup_passes` and `pileup_slabs` count the passes and their
+    slabs.
+
+    The dense and anchored tensors, tuples and mismatches are views into
+    the handle's buffers (tens of MB at panel depth): consume them before
+    the handle's next fetch or pileup. The gVCF positions are copied, since
+    the reference lines keep them until they are written."""
+    global pileup_calls, _passes_in_flight
     from pisces_tpu_torch.pileup.counts import PileupCounts
     from pisces_tpu_torch.domain.types import (
         NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES, num_anchor_indexes,
@@ -696,8 +719,6 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
         raise ValueError(f"keep has {len(keep)} entries; the reader's last "
                          f"fetch decoded {reader._n_decoded} reads")
     lib = reader._lib
-    with _count_lock:
-        pileup_calls += 1
     h = reader._h
     keep_u8 = np.ascontiguousarray(keep, dtype=np.uint8)
     if anchored_positions is None or len(anchored_positions) == 0:
@@ -712,15 +733,32 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
             raise ValueError(f"base_dirs has {len(base_dirs)} entries; the "
                              f"reader's last fetch decoded "
                              f"{int(lib.bam_total_bases(h))} bases")
-    nb = lib.bam_pileup_mm(
-        h, keep_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        min_bq, anchor_size, block_size,
-        ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(ap),
-        (base_dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
-         if base_dirs is not None else None),
-        (rc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
-         if rc is not None else None),
-        0 if rc is None else len(rc), 1 if track_open_ended else 0)
+    with _count_lock:
+        pileup_calls += 1
+        _passes_in_flight += 1
+        in_flight = _passes_in_flight
+    if slabs is None:
+        max_slabs = max(1, min(len(os.sched_getaffinity(0)),
+                               MAX_NATIVE_THREADS) // in_flight)
+        min_slab_blocks = MIN_SLAB_BLOCKS
+    else:
+        max_slabs, min_slab_blocks = slabs, 1
+    try:
+        nb = lib.bam_pileup_mm(
+            h, keep_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            min_bq, anchor_size, block_size,
+            ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(ap),
+            (base_dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+             if base_dirs is not None else None),
+            (rc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+             if rc is not None else None),
+            0 if rc is None else len(rc), 1 if track_open_ended else 0,
+            max_slabs, min_slab_blocks)
+    finally:
+        with _count_lock:
+            _passes_in_flight -= 1
+    metrics.count("pileup_passes")
+    metrics.count("pileup_slabs", int(lib.pileup_n_slabs(h)))
     k = num_anchor_indexes(anchor_size)
     shape_t = (nb, block_size, NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES)
     block_keys = _as_array(lib.pileup_block_keys(h), nb, np.int64)
@@ -729,9 +767,9 @@ def native_pileup(reader: NativeBamReader, keep: np.ndarray, min_bq: int,
     qual_t = _as_view(lib.pileup_qual_t(h), n_t, np.float64).reshape(shape_t)
     shape_a = (len(ap), NUM_ALLELE_TYPES, NUM_DIRECTION_TYPES, k)
     n_a = int(np.prod(shape_a))
-    ac = _as_array(lib.pileup_anchored_counts(h), n_a, np.int32)\
+    ac = _as_view(lib.pileup_anchored_counts(h), n_a, np.int32)\
         .reshape(shape_a)
-    aq = _as_array(lib.pileup_anchored_quals(h), n_a, np.float64)\
+    aq = _as_view(lib.pileup_anchored_quals(h), n_a, np.float64)\
         .reshape(shape_a)
     pc = PileupCounts(block_keys, block_size, anchor_size, counts_t, qual_t,
                       ap, ac, aq)
@@ -826,7 +864,7 @@ def bgzf_compress_parallel(data, level: int = 6, n_threads: int = 0):
     CPU count (at most 16); raises RuntimeError if zlib fails."""
     lib = get_lib()
     if n_threads <= 0:
-        n_threads = min(os.cpu_count() or 1, 16)
+        n_threads = min(os.cpu_count() or 1, MAX_NATIVE_THREADS)
     buf = np.frombuffer(data, dtype=np.uint8)
     h = lib.bgzf_compress(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                           len(buf), level, n_threads)
